@@ -1,0 +1,152 @@
+"""Engine configuration and per-request sampling parameters (PyTorch port).
+
+A copy of `jacobiforcing_tpu/config.py`: the same fields and defaults, so a
+configuration reads the same in both packages.  Options the port does not
+serve yet raise `NotImplementedError` when set instead of being ignored:
+quantization, a narrow KV cache dtype, tensor/data parallelism, the
+one-chunk-lag async host pipeline, and the options that only the
+non-greedy, on-policy and multiblock (MR) decoders read.  The XLA
+compilation-cache and TPU memory-sizing fields have no counterpart here, nor
+do `jacobi_enabled` and `enforce_eager`, which neither package reads.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+
+DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+
+
+def _reject_unported(obj, defaults: dict) -> None:
+    for name, default in defaults.items():
+        if getattr(obj, name) != default:
+            raise NotImplementedError(
+                f"{type(obj).__name__}.{name}={getattr(obj, name)!r} is not "
+                f"supported by the PyTorch port yet (only {default!r})"
+            )
+
+
+@dataclass
+class Config:
+    """Engine-level configuration (mirrors jacobiforcing_tpu.config.Config)."""
+
+    model: str = ""
+    max_num_batched_tokens: int = 16384
+    max_num_seqs: int = 256
+    max_model_len: int = 8192
+    tensor_parallel_size: int = 1
+    data_parallel_size: int = 1
+    eos: int = -1
+    pad: int = -1
+    stop_token_ids: tuple = ()
+    # Paged KV cache: any page size that is a multiple of 16.
+    kvcache_page_size: int = 256
+    num_kv_pages: int = -1  # -1 = size from free device memory at startup
+    hbm_utilization: float = 0.9
+
+    jacobi_block_len: int = 64
+    jacobi_max_blocks: int = 2
+    jacobi_spawn_ratio: float = 0.8
+    jacobi_lookahead_start_ratio: float = 0.0
+    jacobi_n_gram_pool_size: int = 4
+    jacobi_max_iterations: int = 128
+    jacobi_mr_auto_policy: bool = True
+    jacobi_mr_probe_chunks: int = 4
+    jacobi_mr_reprobe_every: int = 256
+    jacobi_mr_single_arm: bool = True
+
+    # Shape buckets: the batch is padded to the next batch bucket and the
+    # prefill suffix to the next token bucket, as in the JAX engine.
+    batch_buckets: tuple = DEFAULT_BATCH_BUCKETS
+    prefill_token_buckets: tuple = (256, 512, 1024, 2048, 4096, 8192)
+    # Tokens committed per Jacobi chunk before control returns to the
+    # scheduler (admission/retirement).
+    jacobi_chunk_tokens: int = 256
+    # > 0: iteration-budget chunking (a fixed number of loop trips per chunk).
+    jacobi_chunk_iters: int = 0
+    # The port's engine is synchronous; the one-chunk-lag pipeline of the
+    # JAX engine is not ported yet, so this must stay False.
+    jacobi_async_host: bool = False
+
+    seed: int = 0
+    quantization: str = ""
+    kv_cache_dtype: str = ""
+
+    # Resolved at engine init.
+    model_path: str = field(default="", repr=False)
+
+    def __post_init__(self):
+        assert self.kvcache_page_size % 16 == 0
+        _reject_unported(self, {
+            "quantization": "",
+            "kv_cache_dtype": "",
+            "tensor_parallel_size": 1,
+            "data_parallel_size": 1,
+            "jacobi_async_host": False,
+            # read only by the on-policy and multiblock (MR) decoders
+            "pad": -1,
+            "stop_token_ids": (),
+            "jacobi_spawn_ratio": 0.8,
+            "jacobi_lookahead_start_ratio": 0.0,
+            "jacobi_n_gram_pool_size": 4,
+            "jacobi_mr_auto_policy": True,
+            "jacobi_mr_probe_chunks": 4,
+            "jacobi_mr_reprobe_every": 256,
+            "jacobi_mr_single_arm": True,
+        })
+        if self.model:
+            self.model_path = resolve_checkpoint_dir(self.model)
+
+
+def resolve_checkpoint_dir(model_path: str) -> str:
+    """Auto-select the latest `checkpoint-*` subdir if present."""
+    if os.path.isdir(model_path):
+        ckpts = [
+            d
+            for d in os.listdir(model_path)
+            if d.startswith("checkpoint-") and os.path.isdir(os.path.join(model_path, d))
+        ]
+        if ckpts:
+            latest = max(ckpts, key=lambda x: int(x.split("-")[1]))
+            return os.path.join(model_path, latest)
+    return model_path
+
+
+@dataclass
+class SamplingParams:
+    """Per-request sampling parameters (mirrors the JAX SamplingParams)."""
+
+    temperature: float = 1.0
+    top_k: int = -1
+    top_p: float = 1.0
+    max_tokens: int = 64
+    ignore_eos: bool = False
+
+    # "autoregressive" | "jacobi" (the strategies this port serves)
+    decode_strategy: str = "autoregressive"
+
+    jacobi_block_len: int = 64
+    jacobi_max_blocks: int = 2
+    jacobi_spawn_ratio: float = 0.8
+    jacobi_lookahead_start_ratio: float = 0.0
+    jacobi_n_gram_pool_size: int = 4
+    jacobi_max_iterations: int = 128
+
+    jacobi_on_policy: bool = False
+    jacobi_accept_threshold: float = 0.0
+
+    def __post_init__(self):
+        assert self.temperature >= 0.0
+        # top-k / top-p shape only the non-greedy Jacobi target; on-policy
+        # rollouts are their own decoder.  Neither is ported yet.
+        _reject_unported(self, {
+            "top_k": -1,
+            "top_p": 1.0,
+            "jacobi_on_policy": False,
+            "jacobi_accept_threshold": 0.0,
+        })
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature == 0.0

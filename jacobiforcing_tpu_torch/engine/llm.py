@@ -1,0 +1,94 @@
+"""Public serving API (PyTorch port of `jacobiforcing_tpu/engine/llm.py`).
+
+    from jacobiforcing_tpu_torch import LLM, SamplingParams
+    llm = LLM(model="/path/to/ckpt", device="cuda")
+    outs = llm.generate(prompt_ids, SamplingParams(max_tokens=128), greedy=True,
+                        jacobi_decoding=True)
+
+`generate` merges the greedy/Jacobi convenience kwargs into SamplingParams
+and delegates to the engine.  Keyword arguments that name a `Config` field
+configure the engine; the rest (`device`, `dtype`, `num_kv_pages`,
+`model_cfg`, `params`) go to `LLMEngine`.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import fields, replace
+from typing import Any, Dict, List, Optional, Union
+
+from jacobiforcing_tpu_torch.config import Config, SamplingParams
+from jacobiforcing_tpu_torch.engine.llm_engine import LLMEngine
+
+
+class LLM:
+    def __init__(self, model: str = "", tokenizer=None, device="cuda", **kwargs):
+        cfg_fields = {f.name for f in fields(Config)}
+        cfg_kwargs = {k: v for k, v in kwargs.items() if k in cfg_fields}
+        engine_kwargs = {k: v for k, v in kwargs.items() if k not in cfg_fields}
+        config = Config(model=model, **cfg_kwargs)
+        if tokenizer is None and model:
+            tokenizer = _load_tokenizer(config.model_path)
+        self.engine = LLMEngine(config, tokenizer=tokenizer, device=device, **engine_kwargs)
+        self.tokenizer = tokenizer
+
+    def generate(
+        self,
+        prompts: Union[List[str], List[List[int]]],
+        sampling_params: Optional[SamplingParams] = None,
+        *,
+        greedy: Optional[bool] = None,
+        jacobi_decoding: Optional[bool] = None,
+        jacobi_block_len: Optional[int] = None,
+        jacobi_max_iterations: Optional[int] = None,
+        use_tqdm: bool = False,
+    ) -> List[Dict[str, Any]]:
+        sp = sampling_params or SamplingParams()
+        updates: Dict[str, Any] = {}
+        if greedy:
+            updates["temperature"] = 0.0
+        if jacobi_decoding is not None:
+            updates["decode_strategy"] = "jacobi" if jacobi_decoding else "autoregressive"
+        if jacobi_block_len is not None:
+            updates["jacobi_block_len"] = jacobi_block_len
+        if jacobi_max_iterations is not None:
+            updates["jacobi_max_iterations"] = jacobi_max_iterations
+        if updates:
+            sp = replace(sp, **updates)
+        if sp.decode_strategy == "jacobi" and sp.temperature > 0:
+            # the JAX API routes this to the non-greedy decoder, which the
+            # port does not serve yet: the engine raises for it
+            sp = replace(sp, decode_strategy="jacobi_nongreedy")
+
+        if prompts and isinstance(prompts[0], str):
+            assert self.tokenizer is not None, "text prompts need a tokenizer"
+            prompt_ids = [self.tokenizer.encode(p) for p in prompts]
+        else:
+            prompt_ids = prompts
+        return self.engine.generate(prompt_ids, sp, use_tqdm=use_tqdm)
+
+    @property
+    def stats(self):
+        return self.engine.stats
+
+    def exit(self) -> None:
+        self.engine.exit()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.exit()
+        return False
+
+
+def _load_tokenizer(path: str):
+    """The checkpoint's HF tokenizer, or None where the directory holds none
+    (the in-repo demo checkpoints work on token ids)."""
+    if not any(
+        os.path.exists(os.path.join(path, f)) for f in ("tokenizer.json", "tokenizer_config.json")
+    ):
+        return None
+    from transformers import AutoTokenizer
+
+    return AutoTokenizer.from_pretrained(path)

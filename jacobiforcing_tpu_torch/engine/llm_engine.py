@@ -1,0 +1,407 @@
+"""Engine core: request admission, batched prefill/decode dispatch, retirement.
+
+PyTorch port of `jacobiforcing_tpu/engine/llm_engine.py` for the greedy
+serving slice:
+  * AR sequences step one token per `ar_decode_step` call (batched, padded to
+    the next batch bucket);
+  * greedy Jacobi sequences run whole chunks (`jacobi_chunk_greedy`), grouped
+    by (block_len L, ignore_eos), and their commits are read back right after
+    each chunk (synchronous: the JAX engine's one-chunk-lag pipeline is a
+    later slice).
+
+Host randomness is the JAX engine's: a `np.random.RandomState(config.seed)`
+draws the bootstrap draft appended at prefill.  Device randomness (AR
+sampling, the random tail of Jacobi drafts) comes from a `torch.Generator`
+seeded from `config.seed`; it cannot reproduce `jax.random`'s bits, so greedy
+token streams match the JAX engine exactly while iteration counts (and so
+tokens per forward) move within the spread across seeds.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional, Sequence as PySeq
+
+import numpy as np
+import torch
+
+from jacobiforcing_tpu_torch.config import Config, SamplingParams
+from jacobiforcing_tpu_torch.engine import runner
+from jacobiforcing_tpu_torch.engine.block_manager import BlockManager
+from jacobiforcing_tpu_torch.engine.scheduler import Scheduler
+from jacobiforcing_tpu_torch.engine.sequence import Sequence
+from jacobiforcing_tpu_torch.models.qwen import ModelConfig, rope_table
+from jacobiforcing_tpu_torch.ops.kv_cache import alloc_kv_cache
+from jacobiforcing_tpu_torch.utils.device import resolve_device
+
+
+def _bucket(n: int, buckets: PySeq[int]) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+class LLMEngine:
+    SUPPORTED_STRATEGIES = {"autoregressive", "jacobi"}
+
+    def __init__(
+        self,
+        config: Config,
+        *,
+        model_cfg: Optional[ModelConfig] = None,
+        params: Optional[Dict[str, Any]] = None,
+        tokenizer=None,
+        num_kv_pages: Optional[int] = None,
+        dtype: torch.dtype = torch.bfloat16,
+        device="cuda",
+    ):
+        self.config = config
+        self.device = resolve_device(device)
+        if params is None:
+            from jacobiforcing_tpu_torch.utils.loader import load_checkpoint
+
+            model_cfg, params = load_checkpoint(config.model_path, dtype=dtype, device=self.device)
+        assert model_cfg is not None
+        self.model_cfg = model_cfg
+        self.params = params
+        self.tokenizer = tokenizer
+        if tokenizer is not None and config.eos < 0:
+            config.eos = tokenizer.eos_token_id
+        self.rope = rope_table(model_cfg, self.device)
+
+        page = config.kvcache_page_size
+        npages = num_kv_pages or (config.num_kv_pages if config.num_kv_pages > 0 else None)
+        if npages is None:
+            npages = self._pages_from_memory(page)
+        self.kv = alloc_kv_cache(
+            model_cfg.num_layers, npages, page, model_cfg.num_kv_heads,
+            model_cfg.head_dim, model_cfg.dtype, self.device,
+        )
+        self.block_manager = BlockManager(npages, page)
+        self.scheduler = Scheduler(config, self.block_manager)
+
+        self.rng = np.random.RandomState(config.seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        max_margin = max(config.jacobi_block_len * config.jacobi_max_blocks, 256)
+        self.pages_bucket = (config.max_model_len + max_margin + page - 1) // page
+        self.cap_tokens = config.max_model_len + max_margin + 1
+        self.stats: Dict[str, float] = {
+            "prefill_tokens": 0, "generated_tokens": 0, "jacobi_iterations": 0,
+            "ar_steps": 0, "chunk_calls": 0, "chunk_forwards": 0,
+        }
+
+    # ------------------------------------------------------------------
+    def _pages_from_memory(self, page: int) -> int:
+        """Size the KV pool from free device memory (40k-page hard cap)."""
+        if self.device.type != "cuda":
+            raise ValueError("on the CPU pass num_kv_pages: there is no device memory to size "
+                             "the KV pool from")
+        mc = self.model_cfg
+        itemsize = torch.empty((), dtype=mc.dtype).element_size()
+        bytes_per_tok = 2 * mc.num_layers * mc.num_kv_heads * mc.head_dim * itemsize
+        free, total = torch.cuda.mem_get_info(self.device)
+        avail = max(int(total * self.config.hbm_utilization) - (total - free), 1 << 28)
+        npages = int(avail // (bytes_per_tok * page))
+        return max(16, min(npages, 40_000))
+
+    # ------------------------------------------------------------------
+    def add_request(self, token_ids: List[int], sampling_params: SamplingParams) -> Sequence:
+        strat = sampling_params.decode_strategy
+        if strat not in self.SUPPORTED_STRATEGIES:
+            raise NotImplementedError(
+                f"decode_strategy {strat!r} is not supported by the PyTorch port yet"
+            )
+        if strat == "jacobi" and sampling_params.temperature > 0:
+            raise NotImplementedError("non-greedy Jacobi is not supported by the PyTorch port yet")
+        if len(token_ids) >= self.config.max_model_len:
+            raise ValueError(
+                f"prompt ({len(token_ids)} tokens) exceeds max_model_len "
+                f"{self.config.max_model_len}"
+            )
+        room = self.config.max_model_len - len(token_ids)
+        if sampling_params.max_tokens > room:
+            from dataclasses import replace
+
+            sampling_params = replace(sampling_params, max_tokens=room)
+        seq = Sequence(token_ids, sampling_params)
+        self.scheduler.add(seq)
+        return seq
+
+    # ------------------------------------------------------------------
+    def step(self) -> List[Sequence]:
+        seqs, is_prefill = self.scheduler.schedule()
+        if not seqs:
+            return []
+        if is_prefill:
+            max_b = self.config.batch_buckets[-1]
+            for i in range(0, len(seqs), max_b):
+                self._run_prefill(seqs[i : i + max_b])
+        else:
+            self._run_decode(seqs)
+        self.scheduler.postprocess(seqs)
+        return [s for s in seqs if s.is_finished]
+
+    # ------------------------------------------------------------------
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _pad_block_table(self, seqs: List[Sequence], B: int) -> torch.Tensor:
+        bt = np.full((B, self.pages_bucket), -1, np.int32)
+        for i, s in enumerate(seqs):
+            tab = s.block_table[: self.pages_bucket]
+            bt[i, : len(tab)] = tab
+        return self._tensor(bt)
+
+    @staticmethod
+    def _is_jacobi(s: Sequence) -> bool:
+        return s.sampling_params.decode_strategy == "jacobi"
+
+    def _draft_len(self, s: Sequence) -> int:
+        return s.sampling_params.jacobi_block_len if self._is_jacobi(s) else 0
+
+    def _prefill_segment(self, seqs: List[Sequence], max_T: int) -> None:
+        """Forward one bounded segment of each long uncached prompt suffix
+        (chunked prefill); each segment leaves >= 1 uncached token so the final
+        pass still gathers logits at prompt_len - 1."""
+        B = _bucket(len(seqs), self.config.batch_buckets)
+        seg_lens = [min(len(s) - s.num_cached_tokens - 1, max_T) for s in seqs]
+        T = _bucket(max(seg_lens), self.config.prefill_token_buckets)
+        ids = np.zeros((B, T), np.int32)
+        starts = np.zeros((B,), np.int32)
+        totals = np.ones((B,), np.int32)
+        for i, s in enumerate(seqs):
+            c = s.num_cached_tokens
+            ids[i, : seg_lens[i]] = s.token_ids[c : c + seg_lens[i]]
+            starts[i] = c
+            totals[i] = c + seg_lens[i]
+        bt = self._pad_block_table(seqs, B)
+        self.kv, _, _ = runner.prefill(
+            self.params, self.model_cfg, self.rope, self._tensor(ids),
+            self._tensor(starts), self._tensor(totals), self._tensor(totals),
+            self.kv, bt, n_out=1,
+        )
+        for i, s in enumerate(seqs):
+            s.num_cached_tokens += seg_lens[i]
+        self.stats["prefill_tokens"] += sum(seg_lens)
+
+    def _run_prefill(self, seqs: List[Sequence]) -> None:
+        max_T = self.config.prefill_token_buckets[-1]
+        while True:
+            todo = [
+                s for s in seqs
+                if len(s) - s.num_cached_tokens + self._draft_len(s) > max_T
+            ]
+            if not todo:
+                break
+            self._prefill_segment(todo, max_T)
+        jac_Ls = [self._draft_len(s) for s in seqs if self._is_jacobi(s)]
+        n_out = max(jac_Ls) if jac_Ls else 1
+        B = _bucket(len(seqs), self.config.batch_buckets)
+
+        suffixes, starts, totals, prompts_l = [], [], [], []
+        for s in seqs:
+            suffix = list(s.token_ids[s.num_cached_tokens:])
+            L = self._draft_len(s)
+            if L:
+                suffix += self.rng.randint(0, self.model_cfg.vocab_size, L).tolist()
+            suffixes.append(suffix)
+            starts.append(s.num_cached_tokens)
+            totals.append(len(s) + L)
+            prompts_l.append(len(s))
+
+        max_suffix = max(len(x) for x in suffixes)
+        T = _bucket(max_suffix, self.config.prefill_token_buckets)
+        assert max_suffix <= T, f"prefill suffix {max_suffix} > bucket {T}"
+        ids = np.zeros((B, T), np.int32)
+        for i, x in enumerate(suffixes):
+            ids[i, : len(x)] = x
+        starts_a = np.zeros((B,), np.int32)
+        totals_a = np.ones((B,), np.int32)
+        prompts_a = np.ones((B,), np.int32)
+        starts_a[: len(seqs)] = starts
+        totals_a[: len(seqs)] = totals
+        prompts_a[: len(seqs)] = prompts_l
+
+        bt = self._pad_block_table(seqs, B)
+        self.kv, last_logits, draft = runner.prefill(
+            self.params, self.model_cfg, self.rope, self._tensor(ids),
+            self._tensor(starts_a), self._tensor(totals_a), self._tensor(prompts_a),
+            self.kv, bt, n_out=n_out,
+        )
+        # only the AR rows read the [B, V] logits; Jacobi rows take the draft
+        need_logits = any(not self._is_jacobi(s) for s in seqs)
+        if need_logits:
+            last_logits = last_logits.float().cpu().numpy()
+        draft = draft.cpu().numpy()
+        self.stats["prefill_tokens"] += sum(len(x) for x in suffixes)
+
+        for i, s in enumerate(seqs):
+            sp = s.sampling_params
+            if self._is_jacobi(s):
+                s.prefill_draft = draft[i]  # [n_out] greedy continuation
+            else:
+                # commit the first token now
+                if sp.temperature > 0:
+                    logits = last_logits[i] / max(sp.temperature, 1e-6)
+                    g = self.rng.gumbel(size=logits.shape)
+                    tok = int(np.argmax(logits + g))
+                else:
+                    tok = int(np.argmax(last_logits[i]))
+                s.extend_tokens([tok])
+                self.stats["generated_tokens"] += 1
+            s.num_cached_tokens = len(s) - 1
+
+    # ------------------------------------------------------------------
+    def _run_decode(self, seqs: List[Sequence]) -> None:
+        max_b = self.config.batch_buckets[-1]
+        ar = [s for s in seqs if not self._is_jacobi(s)]
+        for i in range(0, len(ar), max_b):
+            self._ar_step(ar[i : i + max_b])
+        groups: Dict[tuple, List[Sequence]] = {}
+        for s in seqs:
+            if self._is_jacobi(s):
+                sp = s.sampling_params
+                groups.setdefault((sp.jacobi_block_len, sp.ignore_eos), []).append(s)
+        for (L, ignore_eos), group in groups.items():
+            for i in range(0, len(group), max_b):
+                self._jacobi_chunk(group[i : i + max_b], L, -1 if ignore_eos else self.config.eos)
+
+    def _ar_step(self, seqs: List[Sequence]) -> None:
+        B = _bucket(len(seqs), self.config.batch_buckets)
+        last = np.zeros((B,), np.int32)
+        lens = np.ones((B,), np.int32)
+        temps = np.zeros((B,), np.float32)
+        active = np.zeros((B,), bool)
+        for i, s in enumerate(seqs):
+            last[i] = s.last_token
+            lens[i] = len(s)
+            temps[i] = s.sampling_params.temperature
+            active[i] = True
+        bt = self._pad_block_table(seqs, B)
+        self.kv, next_tokens = runner.ar_decode_step(
+            self.params, self.model_cfg, self.rope, self.kv,
+            self._tensor(last), self._tensor(lens), bt, self._tensor(active),
+            self._tensor(temps), self.generator,
+        )
+        next_tokens = next_tokens.cpu().numpy()
+        for i, s in enumerate(seqs):
+            s.extend_tokens([int(next_tokens[i])])
+            s.num_cached_tokens = len(s) - 1
+            self.stats["generated_tokens"] += 1
+        self.stats["ar_steps"] += 1
+
+    def _jacobi_chunk(self, seqs: List[Sequence], L: int, eos_id: int) -> None:
+        """Run one greedy Jacobi chunk for a group and commit its tokens."""
+        B = _bucket(len(seqs), self.config.batch_buckets)
+        n = len(seqs)
+        capacity = np.zeros((B,), np.int32)
+        len_limit = np.zeros((B,), np.int32)
+        max_iters = np.ones((B,), np.int32)
+        tokens = np.zeros((B, self.cap_tokens), np.int32)
+        cur_len = np.ones((B,), np.int32)
+        eos = np.ones((B,), bool)  # padding rows inert
+        iters0 = np.zeros((B,), np.int32)
+        draft = np.zeros((B, L), np.int32)
+        for i, s in enumerate(seqs):
+            capacity[i] = min(self.block_manager.capacity_tokens(s), self.cap_tokens - 1)
+            len_limit[i] = len(s) + max(0, s.max_tokens - s.num_completion_tokens)
+            max_iters[i] = min(s.sampling_params.jacobi_max_iterations, 2**30)
+            tokens[i, : len(s)] = s.token_ids
+            cur_len[i] = len(s)
+            eos[i] = False
+            iters0[i] = s.jacobi_iters
+            if s.draft is not None:
+                draft[i] = s.draft
+            else:
+                pf = s.prefill_draft
+                ncopy = 0
+                if pf is not None:
+                    ncopy = min(len(pf), L - 1)
+                    draft[i, 1 : 1 + ncopy] = pf[:ncopy]
+                    s.prefill_draft = None
+                if ncopy < L - 1:
+                    draft[i, 1 + ncopy :] = self.rng.randint(
+                        0, self.model_cfg.vocab_size, L - 1 - ncopy
+                    )
+            draft[i, 0] = s.last_token
+        res = runner.jacobi_chunk_greedy(
+            self.params, self.model_cfg, self.rope, self.kv,
+            self._tensor(tokens), self._tensor(cur_len), self._tensor(draft),
+            self._tensor(eos), self._tensor(iters0), self._pad_block_table(seqs, B),
+            self._tensor(capacity), self._tensor(len_limit), self.generator, eos_id,
+            self._tensor(max_iters),
+            chunk_budget=self.config.jacobi_chunk_tokens,
+            chunk_iters=self.config.jacobi_chunk_iters,
+        )
+        self.kv = res["kv"]
+        window, starts, cur_out, iters_out, draft_out, gen = (
+            res[k].cpu().numpy()
+            for k in ("new_tokens", "win_start", "cur_len", "iters", "draft", "generated")
+        )
+        for i, s in enumerate(seqs):
+            off = len(s) - starts[i]
+            s.extend_tokens(window[i, off : off + (cur_out[i] - len(s))].tolist())
+            s.num_cached_tokens = len(s) - 1
+            s.draft = draft_out[i]
+            s.jacobi_iters = int(iters_out[i])
+            self.stats["generated_tokens"] += int(gen[i])
+        self.stats["jacobi_iterations"] += int(iters_out[:n].sum() - iters0[:n].sum())
+        # loop trips this chunk = the slowest row's iterations
+        self.stats["chunk_forwards"] += int((iters_out[:n] - iters0[:n]).max(initial=0))
+        self.stats["chunk_calls"] += 1
+
+    # ------------------------------------------------------------------
+    def exit(self) -> None:
+        """Release the KV pool and the weights' references."""
+        self.kv = None
+        self.params = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.exit()
+        return False
+
+    def generate_stream(self, prompt_token_ids: List[int], sampling_params: SamplingParams):
+        """Yield lists of newly committed token ids, one per engine step."""
+        seq = self.add_request(prompt_token_ids, sampling_params)
+        emitted = 0
+        while not seq.is_finished:
+            self.step()
+            new = seq.completion_token_ids[emitted:]
+            if new:
+                emitted += len(new)
+                yield new
+
+    def generate(
+        self,
+        prompt_token_ids: List[List[int]],
+        sampling_params: SamplingParams | List[SamplingParams],
+        use_tqdm: bool = False,
+    ) -> List[Dict[str, Any]]:
+        """Blocking batch generation."""
+        if isinstance(sampling_params, SamplingParams):
+            sampling_params = [sampling_params] * len(prompt_token_ids)
+        seqs = [self.add_request(p, sp) for p, sp in zip(prompt_token_ids, sampling_params)]
+        t0 = time.perf_counter()
+        pbar = None
+        if use_tqdm:
+            from tqdm import tqdm
+
+            pbar = tqdm(total=len(seqs), desc="generate")
+        while not self.scheduler.is_finished:
+            finished = self.step()
+            if pbar is not None:
+                pbar.update(len(finished))
+        if pbar is not None:
+            pbar.close()
+        self.stats["wall_s"] = time.perf_counter() - t0
+        outs = []
+        for s in seqs:
+            out = {"token_ids": s.completion_token_ids}
+            if self.tokenizer is not None:
+                out["text"] = self.tokenizer.decode(s.completion_token_ids)
+            outs.append(out)
+        return outs

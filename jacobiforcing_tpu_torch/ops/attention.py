@@ -1,0 +1,88 @@
+"""Paged causal attention: the single attention path for every decode context.
+
+PyTorch port of `jacobiforcing_tpu/ops/attention.py`.  Queries [B, T, NH, D]
+at absolute `positions` attend to the paged cache through `block_tables`; a
+key at position j counts iff `j < cache_lens[b]` and `j <= position`.  One
+function serves prefill, AR decode (T=1) and Jacobi blocks (T=L), so greedy
+Jacobi and greedy AR see bit-identical attention rows.
+
+Two implementations:
+  * `paged_attention_ref`: gather the pages, masked softmax.  The plain
+    version; runs on any device and is what CPU tensors take.
+  * `ops/paged_attention_cuda.paged_attention_cuda`: the hand-written CUDA
+    kernel (csrc/paged_attention.cu).  CUDA tensors always take it, and an
+    input it cannot serve raises instead of falling back.
+
+Left out on purpose (TPU-only): the flat-exp2 softmax and its calibration,
+the `D % 128` feasibility gate, and the serving-mesh shard_map dispatch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from jacobiforcing_tpu_torch.ops.kv_cache import gather_pages
+
+_NEG_INF = -1e30
+
+
+def paged_attention_ref(
+    q: torch.Tensor,  # [B, T, NH, D]
+    k_cache_l: torch.Tensor,  # [KH, num_slots, D]
+    v_cache_l: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, P]
+    cache_lens: torch.Tensor,  # [B] valid KV length (incl. this call's tokens)
+    positions: torch.Tensor,  # [B, T] absolute query positions
+    scale: float,
+    *,
+    page_size: int,
+) -> torch.Tensor:
+    """Plain version of `paged_attention_xla`: same mask, same dtypes."""
+    B, T, NH, D = q.shape
+    KH = k_cache_l.shape[0]
+    groups = NH // KH
+    k = gather_pages(k_cache_l, block_tables, page_size).to(q.dtype)  # [B,S,KH,D]
+    v = gather_pages(v_cache_l, block_tables, page_size).to(q.dtype)
+    S = k.shape[1]
+
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qg = q.reshape(B, T, KH, groups, D).permute(0, 2, 3, 1, 4)  # [B,KH,G,T,D]
+    kt = k.permute(0, 2, 1, 3)  # [B, KH, S, D]
+    scores = torch.einsum("bhgtd,bhsd->bhgts", qg.to(acc), kt.to(acc)) * scale
+
+    key_pos = torch.arange(S, device=q.device)[None, :]
+    valid = key_pos < cache_lens[:, None].long()  # [B, S]
+    causal = key_pos[:, None, :] <= positions[:, :, None].long()  # [B, T, S]
+    mask = (valid[:, None, :] & causal)[:, None, None, :, :]
+    scores = torch.where(mask, scores, torch.tensor(_NEG_INF, dtype=acc, device=q.device))
+
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    vt = v.permute(0, 2, 1, 3)  # [B, KH, S, D]
+    out = torch.einsum("bhgts,bhsd->bhgtd", probs, vt)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, NH, D)
+
+
+def paged_attention(
+    q,
+    k_cache_l,
+    v_cache_l,
+    block_tables,
+    cache_lens,
+    positions,
+    scale,
+    *,
+    page_size: int,
+) -> torch.Tensor:
+    """CUDA tensors go to the kernel (which raises on what it cannot serve);
+    CPU tensors go to the plain version."""
+    if q.is_cuda:
+        from jacobiforcing_tpu_torch.ops.paged_attention_cuda import paged_attention_cuda
+
+        return paged_attention_cuda(
+            q, k_cache_l, v_cache_l, block_tables, cache_lens, positions, scale,
+            page_size=page_size,
+        )
+    return paged_attention_ref(
+        q, k_cache_l, v_cache_l, block_tables, cache_lens, positions, scale,
+        page_size=page_size,
+    )

@@ -1,0 +1,101 @@
+"""Wrapper of the hand-written CUDA paged-attention kernel (csrc/paged_attention.cu).
+
+Port of the TPU kernel `jacobiforcing_tpu/ops/pallas/paged_attention.py::
+paged_attention_pallas`; same arguments as `ops/attention.paged_attention_ref`,
+which is its plain version.  The wrapper checks device, dtype, shape and
+contiguity and raises on anything the kernel does not take; it launches on
+PyTorch's current stream, does not synchronise, and raises if the launch is
+refused.  `paged_attention_cuda.launches` counts its launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from jacobiforcing_tpu_torch.ops import _build
+
+SUPPORTED_HEAD_DIMS = (64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_FN = None
+
+
+def _kernel():
+    global _FN
+    if _FN is None:
+        lib = _build.load("paged_attention")
+        fn = lib.jf_paged_attention
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        lib.jf_error_string.argtypes = [ctypes.c_int]
+        lib.jf_error_string.restype = ctypes.c_char_p
+        _FN = (fn, lib.jf_error_string)
+    return _FN
+
+
+def check_inputs(q, k_cache_l, v_cache_l, block_tables, cache_lens, positions, page_size):
+    """Raise ValueError for anything the kernel does not take."""
+    if q.dim() != 4 or k_cache_l.dim() != 3 or v_cache_l.dim() != 3:
+        raise ValueError("expected q [B, L, NH, D] and k/v caches [KH, num_slots, D]")
+    B, L, NH, D = q.shape
+    KH, num_slots, Dk = k_cache_l.shape
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"q dtype {q.dtype} not supported (float32 or bfloat16)")
+    if k_cache_l.dtype != q.dtype or v_cache_l.dtype != q.dtype:
+        raise ValueError("the K/V cache dtype must equal the query dtype")
+    if D not in SUPPORTED_HEAD_DIMS or Dk != D or tuple(v_cache_l.shape) != (KH, num_slots, D):
+        raise ValueError(f"head_dim must be one of {SUPPORTED_HEAD_DIMS} for q, k and v")
+    if KH == 0 or NH % KH != 0:
+        raise ValueError(f"query heads {NH} must be a multiple of KV heads {KH}")
+    if page_size % 16 != 0 or num_slots % page_size != 0:
+        raise ValueError(f"page_size {page_size} must be a multiple of 16 dividing the slots")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B:
+        raise ValueError("block_tables must be [B, P]")
+    if tuple(cache_lens.shape) != (B,) or tuple(positions.shape) != (B, L):
+        raise ValueError("cache_lens must be [B] and positions [B, L]")
+    for name, t in (("block_tables", block_tables), ("cache_lens", cache_lens),
+                    ("positions", positions)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
+    tensors = (q, k_cache_l, v_cache_l, block_tables, cache_lens, positions)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError("all inputs must be CUDA tensors on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("all inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k_cache_l, v_cache_l)):
+        raise ValueError("q, k and v must start on a 16-byte boundary (the kernel loads 16 B)")
+
+
+def paged_attention_cuda(
+    q: torch.Tensor,  # [B, L, NH, D]
+    k_cache_l: torch.Tensor,  # [KH, num_slots, D]
+    v_cache_l: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, P] int32 (-1 = unused)
+    cache_lens: torch.Tensor,  # [B] int32
+    positions: torch.Tensor,  # [B, L] int32
+    scale: float,
+    *,
+    page_size: int,
+) -> torch.Tensor:
+    check_inputs(q, k_cache_l, v_cache_l, block_tables, cache_lens, positions, page_size)
+    fn, err_str = _kernel()
+    B, L, NH, D = q.shape
+    KH, num_slots, _ = k_cache_l.shape
+    out = torch.empty_like(q)
+    rc = fn(
+        q.data_ptr(), k_cache_l.data_ptr(), v_cache_l.data_ptr(), block_tables.data_ptr(),
+        cache_lens.data_ptr(), positions.data_ptr(), out.data_ptr(),
+        B, L, NH, KH, D, block_tables.shape[1], num_slots, page_size, float(scale),
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        msg = "unsupported shape or dtype" if rc < 0 else err_str(rc).decode()
+        raise RuntimeError(f"paged_attention kernel launch failed ({rc}): {msg}")
+    paged_attention_cuda.launches += 1
+    return out
+
+
+paged_attention_cuda.launches = 0

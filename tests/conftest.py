@@ -19,3 +19,9 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 # fp64 for tiny-model greedy exact-match tests (see ModelConfig.tiny).
 jax.config.update("jax_enable_x64", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips with a reason where there is none"
+    )

@@ -1,0 +1,216 @@
+"""The port's paged attention and KV cache against the JAX package.
+
+The same numpy inputs go through `jacobiforcing_tpu` (XLA reference and the
+Pallas kernel in interpret mode) and `jacobiforcing_tpu_torch` (the plain
+PyTorch version), in fp64 unless stated.  Tolerance for fp64: 1e-10 abs and
+rel (the two compute the same masked softmax; only summation order differs).
+The Pallas kernel runs in f32 (its supported input types): 2e-5, as in
+tests/test_pallas_attention.py.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from jacobiforcing_tpu.ops import kv_cache as jkv
+from jacobiforcing_tpu.ops.attention import paged_attention_xla
+from jacobiforcing_tpu.ops.pallas.paged_attention import paged_attention_pallas
+from jacobiforcing_tpu_torch.ops import kv_cache as tkv
+from jacobiforcing_tpu_torch.ops import paged_attention_cuda as pac
+from jacobiforcing_tpu_torch.ops.attention import paged_attention, paged_attention_ref
+
+PAGE = 16
+TOL64 = dict(rtol=1e-10, atol=1e-10)
+
+
+def _inputs(B=2, L=4, NH=4, KH=2, D=32, pages_per_seq=6, num_pages=None, seed=0,
+            dtype=np.float64):
+    r = np.random.RandomState(seed)
+    num_pages = num_pages or B * pages_per_seq + 4
+    q = r.randn(B, L, NH, D).astype(dtype)
+    k = r.randn(KH, num_pages * PAGE, D).astype(dtype)
+    v = r.randn(KH, num_pages * PAGE, D).astype(dtype)
+    bt = np.full((B, pages_per_seq), -1, np.int32)
+    perm = r.permutation(num_pages)  # shuffled, non-contiguous pages
+    for b in range(B):
+        bt[b] = perm[b * pages_per_seq : (b + 1) * pages_per_seq]
+    return q, k, v, bt
+
+
+def _both(q, k, v, bt, lens, pos, scale, page=PAGE):
+    ref = paged_attention_xla(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bt),
+        jnp.asarray(lens), jnp.asarray(pos), scale, page_size=page,
+    )
+    out = paged_attention_ref(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(bt),
+        torch.from_numpy(lens), torch.from_numpy(pos), scale, page_size=page,
+    )
+    return np.asarray(ref), out.numpy()
+
+
+@pytest.mark.parametrize("L,lens", [
+    (4, (37, 80)),   # jacobi block, ragged tails
+    (1, (17, 65)),   # AR decode
+    (8, (9, 96)),    # block crossing pages, full table
+])
+def test_ref_matches_xla(L, lens):
+    q, k, v, bt = _inputs(L=L)
+    lens = np.asarray(lens, np.int32)
+    pos = (lens - L)[:, None] + np.arange(L, dtype=np.int32)[None, :]
+    ref, out = _both(q, k, v, bt, lens, pos, 1.0 / np.sqrt(q.shape[-1]))
+    np.testing.assert_allclose(out, ref, **TOL64)
+
+
+def test_ref_prefill_with_prefix_offset_and_clamped_positions():
+    """Prefill from a prefix-cache offset; the last positions repeat, as
+    runner.prefill clamps them at max_position - 1."""
+    q, k, v, bt = _inputs(L=40)
+    start = np.asarray([32, 48], np.int32)
+    lens = start + 40
+    pos = start[:, None] + np.arange(40, dtype=np.int32)[None, :]
+    pos = np.minimum(pos, 80).astype(np.int32)
+    ref, out = _both(q, k, v, bt, lens, pos, 0.125)
+    np.testing.assert_allclose(out, ref, **TOL64)
+
+
+def test_ref_padding_rows_and_minus_one_pages():
+    """Batch-bucket padding rows (all -1 table, cache_lens 1) and -1 table
+    tails of live rows: same values as the JAX reference, all finite."""
+    q, k, v, bt = _inputs(B=3, L=4)
+    bt[1, :] = -1
+    bt[0, 4:] = -1
+    lens = np.asarray([37, 1, 50], np.int32)
+    pos = (np.maximum(lens, 4) - 4)[:, None] + np.arange(4, dtype=np.int32)[None, :]
+    ref, out = _both(q, k, v, bt, lens, pos, 1.0 / np.sqrt(q.shape[-1]))
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, **TOL64)
+
+
+@pytest.mark.parametrize("L,lens,start", [
+    (4, (37, 80), None),
+    (1, (17, 65), None),
+    (8, (40, 56), (32, 48)),  # prefill at a prefix offset
+])
+def test_ref_matches_pallas_interpret(L, lens, start):
+    """Against the TPU kernel itself (interpret mode, exact online softmax)."""
+    q, k, v, bt = _inputs(L=L, dtype=np.float32)
+    lens = np.asarray(lens, np.int32)
+    first = np.asarray(start, np.int32) if start is not None else lens - L
+    pos = first[:, None] + np.arange(L, dtype=np.int32)[None, :]
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    pallas = paged_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bt), jnp.asarray(lens),
+        jnp.asarray(pos), scale, page_size=PAGE, interpret=True, softmax="online",
+    )
+    out = paged_attention_ref(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(bt),
+        torch.from_numpy(lens), torch.from_numpy(pos), scale, page_size=PAGE,
+    )
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas), rtol=2e-5, atol=2e-5)
+
+
+def test_gather_pages_matches_jax():
+    _, k, _, bt = _inputs()
+    bt[1, 3:] = -1
+    ref = np.asarray(jkv.gather_pages(jnp.asarray(k), jnp.asarray(bt), PAGE))
+    out = tkv.gather_pages(torch.from_numpy(k), torch.from_numpy(bt), PAGE).numpy()
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_write_kv_drop_semantics():
+    """Slots >= num_slots (masked tokens, -1 pages) are skipped, never
+    clamped onto a real slot; the port writes in place."""
+    r = np.random.RandomState(3)
+    KH, D, slots = 2, 8, 4 * PAGE
+    k0 = r.randn(KH, slots, D)
+    v0 = r.randn(KH, slots, D)
+    k_new = r.randn(2, 5, KH, D)
+    v_new = r.randn(2, 5, KH, D)
+    dest = np.asarray([[3, 17, slots, 62, slots + 7], [slots, 0, 1, slots, 40]], np.int32)
+    jk, jv = jkv.write_kv(jnp.asarray(k0), jnp.asarray(v0), jnp.asarray(k_new),
+                          jnp.asarray(v_new), jnp.asarray(dest))
+    tk, tv = torch.from_numpy(k0.copy()), torch.from_numpy(v0.copy())
+    ok, ov = tkv.write_kv(tk, tv, torch.from_numpy(k_new), torch.from_numpy(v_new),
+                          torch.from_numpy(dest))
+    assert ok is tk and ov is tv
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    # the last slot was not written by the out-of-range tokens
+    np.testing.assert_array_equal(tk.numpy()[:, slots - 1], k0[:, slots - 1])
+
+
+def test_dispatch_cpu_takes_plain_version():
+    q, k, v, bt = _inputs(L=4, dtype=np.float32)
+    lens = np.asarray([37, 80], np.int32)
+    pos = (lens - 4)[:, None] + np.arange(4, dtype=np.int32)[None, :]
+    args = [torch.from_numpy(a) for a in (q, k, v, bt, lens, pos)]
+    before = pac.paged_attention_cuda.launches
+    out = paged_attention(*args, 0.2, page_size=PAGE)
+    ref = paged_attention_ref(*args, 0.2, page_size=PAGE)
+    assert torch.equal(out, ref)
+    assert pac.paged_attention_cuda.launches == before
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(D=48), "head_dim"),
+    (dict(dtype=torch.float16), "dtype"),
+    (dict(page=8), "page_size"),
+    (dict(bt_dtype=torch.int64), "int32"),
+    (dict(device="cpu"), "CUDA"),
+])
+def test_kernel_wrapper_rejects_unsupported_inputs(change, match):
+    """check_inputs raises on what the kernel does not take (it runs before
+    any launch, so this holds without a card)."""
+    D = change.get("D", 64)
+    dtype = change.get("dtype", torch.float32)
+    page = change.get("page", 16)
+    q = torch.zeros(1, 2, 4, D, dtype=dtype)
+    k = torch.zeros(2, 4 * page, D, dtype=dtype)
+    bt = torch.zeros(1, 4, dtype=change.get("bt_dtype", torch.int32))
+    lens = torch.ones(1, dtype=torch.int32)
+    pos = torch.zeros(1, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match=match):
+        pac.check_inputs(q, k, k, bt, lens, pos, page)
+
+
+def test_kernel_wrapper_rejects_cpu_tensors():
+    q, k, v, bt = _inputs(L=1, D=64, dtype=np.float32)
+    args = [torch.from_numpy(a) for a in (q, k, v, bt)]
+    lens = torch.tensor([5, 9], dtype=torch.int32)
+    pos = torch.tensor([[4], [8]], dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        pac.paged_attention_cuda(*args, lens, pos, 0.125, page_size=PAGE)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_on_cuda(cuda, dtype):
+    """Hand-written kernel vs the plain version on the card; padding row 1
+    only has to be finite (the kernel never reads a -1 page).  f32: |err| <=
+    1e-5 * max|ref|; bf16: per element |err| <= 2^-5 * |ref| + 2^-7 * max|ref|
+    of its row (a few bf16 ulps)."""
+    q, k, v, bt = _inputs(B=3, L=8, NH=14, KH=2, D=128, num_pages=24, dtype=np.float32)
+    bt[1, :] = -1
+    lens = np.asarray([37, 8, 90], np.int32)
+    pos = (lens - 8)[:, None] + np.arange(8, dtype=np.int32)[None, :]
+    args = [torch.from_numpy(a).cuda() for a in (q, k, v)]
+    args = [a.to(dtype) for a in args] + [torch.from_numpy(a).cuda() for a in (bt, lens, pos)]
+    out = paged_attention(*args, 1.0 / np.sqrt(128), page_size=PAGE)
+    ref = paged_attention_ref(*args, 1.0 / np.sqrt(128), page_size=PAGE)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    keep = [0, 2]
+    out, ref = out[keep].float(), ref[keep].float()
+    if dtype == torch.float32:
+        limit = 1e-5 * ref.abs().max()
+    else:
+        limit = ref.abs() * 2.0**-5 + ref.abs().amax(-1, keepdim=True) * 2.0**-7
+    assert ((out - ref).abs() <= limit).all()
