@@ -5,12 +5,17 @@ the same prompt construction, the same evalchemy-compatible JSONL
 generations, the same CSV per-example profile columns and the same EOS-only
 aggregate summary, so the two packages' summaries compare field by field.
 `run(args, engine=None)` builds the port's `LLM` on `args.device`.  The port
-serves the `ar` and `jacobi` strategies.
+serves the `ar`, `jacobi` and `mr` (multiblock with rejection recycling)
+strategies; `--max-blocks`, `--spawn-ratio`, `--lookahead-start-ratio` and
+`--n-gram-pool-size` shape `mr`.
 
 Usage:
     python -m jacobiforcing_tpu_torch.apps.bench_generate \
         --model /path/to/ckpt --dataset prompts.jsonl --strategy jacobi \
         --n-token-seq-len 64 --max-new-tokens 1024 --output-dir out/
+    python -m jacobiforcing_tpu_torch.apps.bench_generate \
+        --model /path/to/ckpt --dataset prompts.jsonl --strategy mr \
+        --n-token-seq-len 64 --max-blocks 2 --n-gram-pool-size 4 --output-dir out/
 """
 
 from __future__ import annotations
@@ -34,7 +39,11 @@ Please continue to complete the function. You are not allowed to modify the give
 
 QWEN_SYSTEM = "You are Qwen, created by Alibaba Cloud. You are a helpful assistant."
 
-STRATEGIES = {"ar": "autoregressive", "jacobi": "jacobi"}
+STRATEGIES = {
+    "ar": "autoregressive",
+    "jacobi": "jacobi",
+    "mr": "jacobi_multiblock_rejection_recycling",
+}
 
 
 def extract_python_code(text: str) -> str:

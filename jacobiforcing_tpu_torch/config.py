@@ -1,13 +1,16 @@
 """Engine configuration and per-request sampling parameters (PyTorch port).
 
 A copy of `jacobiforcing_tpu/config.py`: the same fields and defaults, so a
-configuration reads the same in both packages.  Options the port does not
-serve yet raise `NotImplementedError` when set instead of being ignored:
+configuration reads the same in both packages.  The port serves greedy
+autoregressive, single-block Jacobi and multiblock (MR) decoding, so the MR
+options (`pad`, the `jacobi_mr_*` auto-policy fields, the spawn / lookahead /
+pool fields) are read as in the JAX engine.  Options the port does not serve
+yet raise `NotImplementedError` when set instead of being ignored:
 quantization, a narrow KV cache dtype, tensor/data parallelism, the
-one-chunk-lag async host pipeline, and the options that only the
-non-greedy, on-policy and multiblock (MR) decoders read.  The XLA
-compilation-cache and TPU memory-sizing fields have no counterpart here, nor
-do `jacobi_enabled` and `enforce_eager`, which neither package reads.
+one-chunk-lag async host pipeline, and the options that only the non-greedy
+and on-policy decoders read.  The XLA compilation-cache and TPU memory-sizing
+fields have no counterpart here, nor do `jacobi_enabled` and `enforce_eager`,
+which neither package reads.
 """
 
 from __future__ import annotations
@@ -51,6 +54,10 @@ class Config:
     jacobi_lookahead_start_ratio: float = 0.0
     jacobi_n_gram_pool_size: int = 4
     jacobi_max_iterations: int = 128
+    # Measured MR auto-policy (engine/mr_policy.py): MR requests are served by
+    # whichever of {full MR, MR without candidates, RA-only MR, single-block
+    # Jacobi} measures the highest tokens/s online; all are greedy and commit
+    # identical tokens.  False forces the requested MR configuration.
     jacobi_mr_auto_policy: bool = True
     jacobi_mr_probe_chunks: int = 4
     jacobi_mr_reprobe_every: int = 256
@@ -84,16 +91,7 @@ class Config:
             "tensor_parallel_size": 1,
             "data_parallel_size": 1,
             "jacobi_async_host": False,
-            # read only by the on-policy and multiblock (MR) decoders
-            "pad": -1,
-            "stop_token_ids": (),
-            "jacobi_spawn_ratio": 0.8,
-            "jacobi_lookahead_start_ratio": 0.0,
-            "jacobi_n_gram_pool_size": 4,
-            "jacobi_mr_auto_policy": True,
-            "jacobi_mr_probe_chunks": 4,
-            "jacobi_mr_reprobe_every": 256,
-            "jacobi_mr_single_arm": True,
+            "stop_token_ids": (),  # read only by the on-policy decoder
         })
         if self.model:
             self.model_path = resolve_checkpoint_dir(self.model)
@@ -123,7 +121,8 @@ class SamplingParams:
     max_tokens: int = 64
     ignore_eos: bool = False
 
-    # "autoregressive" | "jacobi" (the strategies this port serves)
+    # "autoregressive" | "jacobi" | "jacobi_multiblock_rejection_recycling"
+    # (the strategies this port serves, all greedy for the Jacobi ones)
     decode_strategy: str = "autoregressive"
 
     jacobi_block_len: int = 64

@@ -20,7 +20,8 @@
 //     -1 page: dead tail slots and padding rows cost nothing and never fault;
 //   * exact online softmax in fp32 with -inf masking, fp32 accumulation, on
 //     the CUDA cores.  Inputs float32 or bfloat16; D in {64, 128} is a
-//     template parameter; any page size that is a multiple of 16.
+//     template parameter; any page size that is a multiple of 16.  The tile
+//     arithmetic lives in attention_tile.cuh, shared with spec_attention.cu.
 //
 // Bit stability (the property greedy Jacobi == greedy AR rests on): the
 // output row of a query at position p is bitwise the same whether it comes
@@ -43,68 +44,11 @@
 // (wgmma) scores and pipelined loads are later work; chip_smoke.py records
 // its time beside the bound.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_tile.cuh"
 
 namespace {
 
-constexpr int KT = 32;                 // keys per tile: one per lane
-constexpr int WARPS = 4;
-constexpr int RW = 16;                 // query rows per warp
-constexpr int ROWS = WARPS * RW;       // query rows per CTA
-constexpr int THREADS = WARPS * 32;
-constexpr unsigned FULL = 0xffffffffu;
-
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;  // elements per 16-byte load
-  __device__ __forceinline__ static void load(const float* p, float* o) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
-  }
-  __device__ __forceinline__ static float to_f32(float x) { return x; }
-  __device__ __forceinline__ static float from_f32(float x) { return x; }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* o) {
-    const uint4 x = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      o[2 * i] = f.x;
-      o[2 * i + 1] = f.y;
-    }
-  }
-  __device__ __forceinline__ static float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-  __device__ __forceinline__ static __nv_bfloat16 from_f32(float x) { return __float2bfloat16(x); }
-};
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-// Butterfly sum: every lane ends with the same bits (a + b == b + a).
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t(ROWS) * D + size_t(KT) * (D + 4) + size_t(KT) * D);
-}
+using namespace jf;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
@@ -113,15 +57,11 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
                        const int* __restrict__ cache_lens, const int* __restrict__ positions,
                        T* __restrict__ out, int L, int NH, int KH, int P, long long num_slots,
                        int page_size, float scale) {
-  constexpr int KSTRIDE = D + 4;  // padded K rows: lane j reads row j conflict-free
-  constexpr int DPL = D / 32;     // output dims per lane
-  constexpr int NV = Vec<T>::N;
-
   extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                   // [ROWS][D]
-  float* k_s = q_s + ROWS * D;         // [KT][KSTRIDE]
-  float* v_s = k_s + KT * KSTRIDE;     // [KT][D]
-  __shared__ long long slot_s[KT];
+  float* q_s = smem;                        // [ROWS][D]
+  float* k_s = q_s + ROWS * D;              // [KT][D + 4]
+  float* v_s = k_s + KT * K_STRIDE<D>;    // [KT][D]
+  __shared__ long long off_s[KT];
   __shared__ int pos_s[ROWS];
   __shared__ int kv_end_s;
 
@@ -139,21 +79,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
     const int r = row0 + i;
     pos_s[i] = r < n_rows ? positions[(long long)b * L + r / G] : -1;
   }
-  for (int idx = tid; idx < ROWS * (D / NV); idx += THREADS) {
-    const int i = idx / (D / NV);
-    const int c = (idx % (D / NV)) * NV;
-    const int r = row0 + i;
-    float vals[NV];
-    if (r < n_rows) {
-      const int t = r / G, g = r % G;
-      Vec<T>::load(q + ((long long)(b * L + t) * NH + h * G + g) * D + c, vals);
-    } else {
-#pragma unroll
-      for (int e = 0; e < NV; ++e) vals[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < NV; ++e) q_s[i * D + c + e] = vals[e];
-  }
+  load_q_tile<T, D>(q, q_s, b, L, NH, h, G, row0, tid);
   __syncthreads();
   if (tid == 0) {
     int mx = -1;
@@ -167,14 +93,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
 #pragma unroll
   for (int r = 0; r < RW; ++r) warp_max_pos = max(warp_max_pos, pos_s[warp * RW + r]);
 
-  float m[RW], l[RW], acc[RW][DPL];
-#pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
-  }
+  RowState<D> st;
+  st.init();
 
   const int* bt = block_tables + (long long)b * P;
   const T* k_head = k_cache + (long long)h * num_slots * D;
@@ -184,104 +104,23 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
     __syncthreads();  // the previous tile is consumed
     if (tid < KT) {
       const int pos = k0 + tid;
-      long long slot = -1;
-      if (pos < kv_end) {
-        const int pi = pos / page_size;
-        const int page = pi < P ? bt[pi] : -1;
-        if (page >= 0) slot = (long long)page * page_size + pos % page_size;
-      }
-      slot_s[tid] = slot;
+      off_s[tid] = pos < kv_end ? paged_key_offset(bt, P, page_size, pos, D) : -1;
     }
     __syncthreads();
-    for (int idx = tid; idx < KT * (D / NV); idx += THREADS) {
-      const int j = idx / (D / NV);
-      const int c = (idx % (D / NV)) * NV;
-      const long long slot = slot_s[j];
-      float kv[NV], vv[NV];
-      if (slot >= 0) {
-        Vec<T>::load(k_head + slot * D + c, kv);
-        Vec<T>::load(v_head + slot * D + c, vv);
-      } else {
-#pragma unroll
-        for (int e = 0; e < NV; ++e) kv[e] = vv[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < NV; ++e) {
-        k_s[j * KSTRIDE + c + e] = kv[e];
-        v_s[j * D + c + e] = vv[e];
-      }
-    }
+    stage_kv_tile<T, D>(k_head, v_head, off_s, k_s, v_s, tid);
     __syncthreads();
     if (warp_max_pos < k0) continue;  // tile in every row's causal future
 
-    // ---- scores: lane j scores key k0 + j against the warp's RW rows ----
     const int kpos = k0 + lane;
-    const bool key_ok = slot_s[lane] >= 0;
-    float s[RW];
+    unsigned visible = 0;
+    if (off_s[lane] >= 0) {
 #pragma unroll
-    for (int r = 0; r < RW; ++r) s[r] = 0.f;
-    const float* krow = k_s + lane * KSTRIDE;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      const float4 k4 = *reinterpret_cast<const float4*>(krow + d);
-#pragma unroll
-      for (int r = 0; r < RW; ++r) {
-        const float4 q4 = *reinterpret_cast<const float4*>(q_s + (warp * RW + r) * D + d);
-        s[r] = fmaf(q4.x, k4.x, s[r]);
-        s[r] = fmaf(q4.y, k4.y, s[r]);
-        s[r] = fmaf(q4.z, k4.z, s[r]);
-        s[r] = fmaf(q4.w, k4.w, s[r]);
-      }
+      for (int r = 0; r < RW; ++r) visible |= (kpos <= pos_s[warp * RW + r] ? 1u : 0u) << r;
     }
-
-    // ---- online softmax update (s[r] becomes the probability of the key) ----
-#pragma unroll
-    for (int r = 0; r < RW; ++r) {
-      const bool ok = key_ok && kpos <= pos_s[warp * RW + r];
-      const float sc = ok ? __fmul_rn(s[r], scale) : -INFINITY;
-      const float m_new = fmaxf(m[r], warp_max(sc));
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = expf(m[r] - m_use);
-      const float p = expf(sc - m_use);
-      l[r] = fmaf(l[r], alpha, warp_sum(p));
-      m[r] = m_new;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[r][i] = __fmul_rn(acc[r][i], alpha);
-      s[r] = p;
-    }
-
-    // ---- acc += P @ V over the tile, keys in order ----
-#pragma unroll 2
-    for (int jj = 0; jj < KT; ++jj) {
-      float v[DPL];
-      const float* vrow = v_s + jj * D + lane * DPL;
-      if constexpr (DPL == 4) {
-        const float4 x = *reinterpret_cast<const float4*>(vrow);
-        v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-      } else {
-        const float2 x = *reinterpret_cast<const float2*>(vrow);
-        v[0] = x.x; v[1] = x.y;
-      }
-#pragma unroll
-      for (int r = 0; r < RW; ++r) {
-        const float p = __shfl_sync(FULL, s[r], jj);
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[r][i] = fmaf(p, v[i], acc[r][i]);
-      }
-    }
+    tile_step<D>(q_s + warp * RW * D, k_s, v_s, lane, visible, scale, st);
   }
 
-#pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    const int row = row0 + warp * RW + r;
-    if (row >= n_rows) continue;
-    const int t = row / G, g = row % G;
-    // a row with no visible key (a padding row) writes zeros, never NaN
-    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-    T* o = out + ((long long)(b * L + t) * NH + h * G + g) * D + lane * DPL;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) o[i] = Vec<T>::from_f32(__fmul_rn(acc[r][i], inv));
-  }
+  store_rows<T, D>(out, st, b, L, NH, h, G, row0, warp, lane);
 }
 
 template <typename T, int D>

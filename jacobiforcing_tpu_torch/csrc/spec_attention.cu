@@ -1,0 +1,175 @@
+// Speculative (multiblock / rejection-recycling) GQA attention for Hopper
+// (sm_90a), plain C interface.
+//
+// Replaces the TPU kernel jacobiforcing_tpu/ops/pallas/spec_attention.py
+// (spec_attention_pallas, body _kernel).  It computes exactly
+// jacobiforcing_tpu_torch.ops.attention.paged_attention_with_block_ref:
+// queries q[B, T, NH, D] attend to the committed keys of one layer of the
+// head-major paged cache k/v[KH, num_slots, D] (key j counts iff
+// j < cache_lens[b]; every in-flight query lies past the committed length, so
+// there is no causal term) AND to the in-flight block k_new/v_new[B, T, KH, D],
+// which is in no cache, under intra_mask[B, T, T] (one byte per entry, shared
+// by all heads), with ONE softmax over both.  It writes no K/V.
+//
+// Design (a simple kernel that is right first):
+//   * one CTA per (64 query rows, KV head h, sequence b), rows token-major, as
+//     in paged_attention.cu, so the G query heads of a KV head share each K/V
+//     tile and each mask byte;
+//   * phase 1 walks the committed keys from 0 to cache_lens[b] in tiles of 32
+//     through the block table; nothing at or past cache_lens[b] is read and no
+//     -1 page is dereferenced, so a padding row (all -1 table) reads nothing;
+//   * phase 2 walks the T in-flight keys in tiles of 32 in the same way, a
+//     key's visibility coming from the mask row of the query's token.  The
+//     in-flight K/V is tiled like the committed keys, not held whole (at
+//     T = 384, D = 128 it would be 96 KiB each in bf16).  A warp skips a tile
+//     none of its rows can see (RA rows never see candidate or pseudo keys);
+//   * m, l and the accumulator carry across both phases: one online softmax.
+//     A query row with no visible key at all writes zeros, not NaN.
+//
+// Bit stability: with the shared tile arithmetic (attention_tile.cuh) a row's
+// bits depend only on the row, its committed keys and the in-flight keys its
+// mask lets through, in key order within fixed 32-key tiles; a fully masked
+// tile changes nothing.  So when the block length N is a multiple of 32, the
+// RA segment's rows are bitwise equal whether the call carries T = N, K*N or
+// (1+C+K-1)*N tokens, and a sequence's rows do not depend on its batch.
+//
+// What bounds it on the H100: the operations (4*D per visible key and query
+// head; 2688 query rows per KV head at T = 384, G = 7), which belong on the
+// tensor cores (989 TFLOP/s bf16).  This first version computes on the CUDA
+// cores in fp32 and re-streams the committed K/V once per query tile;
+// chip_smoke.py records its time beside the bound.  wgmma scores, TMA or
+// cp.async pipelining and a single K/V pass per sequence are later work.
+
+#include "attention_tile.cuh"
+
+namespace {
+
+using namespace jf;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+spec_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
+                      const T* __restrict__ v_cache, const int* __restrict__ block_tables,
+                      const int* __restrict__ cache_lens, const T* __restrict__ k_new,
+                      const T* __restrict__ v_new, const unsigned char* __restrict__ intra_mask,
+                      T* __restrict__ out, int L, int NH, int KH, int P, long long num_slots,
+                      int page_size, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                        // [ROWS][D]
+  float* k_s = q_s + ROWS * D;              // [KT][D + 4]
+  float* v_s = k_s + KT * K_STRIDE<D>;    // [KT][D]
+  __shared__ long long off_s[KT];
+  __shared__ int tok_s[ROWS];  // token of each query row, -1 past the last row
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int row0 = blockIdx.x * ROWS;
+  const int G = NH / KH;
+  const int n_rows = G * L;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int clen = cache_lens[b];
+
+  for (int i = tid; i < ROWS; i += THREADS) tok_s[i] = row0 + i < n_rows ? (row0 + i) / G : -1;
+  load_q_tile<T, D>(q, q_s, b, L, NH, h, G, row0, tid);
+
+  RowState<D> st;
+  st.init();
+  const float* q_w = q_s + warp * RW * D;
+
+  // ---- phase 1: the committed keys, length mask only ----
+  const int* bt = block_tables + (long long)b * P;
+  const T* k_head = k_cache + (long long)h * num_slots * D;
+  const T* v_head = v_cache + (long long)h * num_slots * D;
+  for (int k0 = 0; k0 < clen; k0 += KT) {
+    __syncthreads();  // q_s is loaded / the previous tile is consumed
+    if (tid < KT) {
+      const int pos = k0 + tid;
+      off_s[tid] = pos < clen ? paged_key_offset(bt, P, page_size, pos, D) : -1;
+    }
+    __syncthreads();
+    stage_kv_tile<T, D>(k_head, v_head, off_s, k_s, v_s, tid);
+    __syncthreads();
+    const unsigned visible = off_s[lane] >= 0 ? 0xffffu : 0u;
+    if (!__any_sync(FULL, visible != 0)) continue;  // a tile of -1 pages
+    tile_step<D>(q_w, k_s, v_s, lane, visible, scale, st);
+  }
+
+  // ---- phase 2: the in-flight keys under the intra-block mask ----
+  const unsigned char* mask_b = intra_mask + (long long)b * L * L;
+  const long long blk0 = ((long long)b * L * KH + h) * D;  // (b, token 0, head h)
+  for (int j0 = 0; j0 < L; j0 += KT) {
+    __syncthreads();
+    if (tid < KT) {
+      const int j = j0 + tid;
+      off_s[tid] = j < L ? (long long)j * KH * D : -1;
+    }
+    __syncthreads();
+    stage_kv_tile<T, D>(k_new + blk0, v_new + blk0, off_s, k_s, v_s, tid);
+    __syncthreads();
+    const int j = j0 + lane;
+    unsigned visible = 0;
+    if (j < L) {
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const int t = tok_s[warp * RW + r];  // the row's mask row is its token's
+        if (t >= 0 && mask_b[(long long)t * L + j] != 0) visible |= 1u << r;
+      }
+    }
+    if (!__any_sync(FULL, visible != 0)) continue;  // no row of the warp sees this tile
+    tile_step<D>(q_w, k_s, v_s, lane, visible, scale, st);
+  }
+
+  store_rows<T, D>(out, st, b, L, NH, h, G, row0, warp, lane);
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const void* bt, const void* cl,
+           const void* k_new, const void* v_new, const void* mask, void* out, int B, int L,
+           int NH, int KH, int P, long long num_slots, int page_size, float scale,
+           cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(spec_attention_kernel<T, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = (NH / KH) * L;
+  const dim3 grid((rows + ROWS - 1) / ROWS, KH, B);
+  spec_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const int*>(bt), static_cast<const int*>(cl), static_cast<const T*>(k_new),
+      static_cast<const T*>(v_new), static_cast<const unsigned char*>(mask),
+      static_cast<T*>(out), L, NH, KH, P, num_slots, page_size, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  Returns 0 on success, a cudaError_t
+// code after a refused launch, or -1 for a shape/dtype the kernel does not
+// take (the Python wrapper checks those first).
+extern "C" int jf_spec_attention(const void* q, const void* k, const void* v, const void* bt,
+                                 const void* cl, const void* k_new, const void* v_new,
+                                 const void* mask, void* out, int B, int L, int NH, int KH,
+                                 int D, int P, long long num_slots, int page_size, float scale,
+                                 int dtype, void* stream) {
+  if (B <= 0 || L <= 0 || KH <= 0 || NH % KH != 0 || page_size % 16 != 0) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 64)
+    return launch<float, 64>(q, k, v, bt, cl, k_new, v_new, mask, out, B, L, NH, KH, P,
+                             num_slots, page_size, scale, s);
+  if (dtype == 0 && D == 128)
+    return launch<float, 128>(q, k, v, bt, cl, k_new, v_new, mask, out, B, L, NH, KH, P,
+                              num_slots, page_size, scale, s);
+  if (dtype == 1 && D == 64)
+    return launch<__nv_bfloat16, 64>(q, k, v, bt, cl, k_new, v_new, mask, out, B, L, NH, KH, P,
+                                     num_slots, page_size, scale, s);
+  if (dtype == 1 && D == 128)
+    return launch<__nv_bfloat16, 128>(q, k, v, bt, cl, k_new, v_new, mask, out, B, L, NH, KH, P,
+                                      num_slots, page_size, scale, s);
+  return -1;
+}
+
+extern "C" const char* jf_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

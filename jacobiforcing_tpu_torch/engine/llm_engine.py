@@ -1,24 +1,32 @@
 """Engine core: request admission, batched prefill/decode dispatch, retirement.
 
 PyTorch port of `jacobiforcing_tpu/engine/llm_engine.py` for the greedy
-serving slice:
+serving slices:
   * AR sequences step one token per `ar_decode_step` call (batched, padded to
     the next batch bucket);
   * greedy Jacobi sequences run whole chunks (`jacobi_chunk_greedy`), grouped
     by (block_len L, ignore_eos), and their commits are read back right after
     each chunk (synchronous: the JAX engine's one-chunk-lag pipeline is a
-    later slice).
+    later slice);
+  * multiblock (MR) sequences run `jacobi_chunk_multiblock` chunks, grouped
+    by (L, K, C, ignore_eos), through the measured auto-policy of
+    `engine/mr_policy.py`, with exact handoffs between the MR state machine
+    and the single-block program.
 
 Host randomness is the JAX engine's: a `np.random.RandomState(config.seed)`
-draws the bootstrap draft appended at prefill.  Device randomness (AR
-sampling, the random tail of Jacobi drafts) comes from a `torch.Generator`
-seeded from `config.seed`; it cannot reproduce `jax.random`'s bits, so greedy
-token streams match the JAX engine exactly while iteration counts (and so
-tokens per forward) move within the spread across seeds.
+draws the bootstrap draft appended at prefill and every random draft tail of
+the MR arms, so with the MR program forced the port matches the JAX engine
+iteration for iteration.  Device randomness (AR sampling, the random tail of
+single-block Jacobi drafts) comes from a `torch.Generator` seeded from
+`config.seed`; it cannot reproduce `jax.random`'s bits, so there greedy token
+streams match the JAX engine exactly while iteration counts (and so tokens
+per forward) move within the spread across seeds.
 """
 
 from __future__ import annotations
 
+import math
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence as PySeq
 
@@ -28,6 +36,8 @@ import torch
 from jacobiforcing_tpu_torch.config import Config, SamplingParams
 from jacobiforcing_tpu_torch.engine import runner
 from jacobiforcing_tpu_torch.engine.block_manager import BlockManager
+from jacobiforcing_tpu_torch.engine.mr_policy import ARM_SINGLE, MRAutoPolicy
+from jacobiforcing_tpu_torch.engine.multiblock import STATE_KEYS, jacobi_chunk_multiblock
 from jacobiforcing_tpu_torch.engine.scheduler import Scheduler
 from jacobiforcing_tpu_torch.engine.sequence import Sequence
 from jacobiforcing_tpu_torch.models.qwen import ModelConfig, rope_table
@@ -43,7 +53,8 @@ def _bucket(n: int, buckets: PySeq[int]) -> int:
 
 
 class LLMEngine:
-    SUPPORTED_STRATEGIES = {"autoregressive", "jacobi"}
+    MR = "jacobi_multiblock_rejection_recycling"
+    SUPPORTED_STRATEGIES = {"autoregressive", "jacobi", MR}
 
     def __init__(
         self,
@@ -90,6 +101,7 @@ class LLMEngine:
             "prefill_tokens": 0, "generated_tokens": 0, "jacobi_iterations": 0,
             "ar_steps": 0, "chunk_calls": 0, "chunk_forwards": 0,
         }
+        self._mr_policies: Dict[tuple, MRAutoPolicy] = {}
 
     # ------------------------------------------------------------------
     def _pages_from_memory(self, page: int) -> int:
@@ -112,7 +124,7 @@ class LLMEngine:
             raise NotImplementedError(
                 f"decode_strategy {strat!r} is not supported by the PyTorch port yet"
             )
-        if strat == "jacobi" and sampling_params.temperature > 0:
+        if strat.startswith("jacobi") and sampling_params.temperature > 0:
             raise NotImplementedError("non-greedy Jacobi is not supported by the PyTorch port yet")
         if len(token_ids) >= self.config.max_model_len:
             raise ValueError(
@@ -155,7 +167,7 @@ class LLMEngine:
 
     @staticmethod
     def _is_jacobi(s: Sequence) -> bool:
-        return s.sampling_params.decode_strategy == "jacobi"
+        return s.sampling_params.decode_strategy.startswith("jacobi")
 
     def _draft_len(self, s: Sequence) -> int:
         return s.sampling_params.jacobi_block_len if self._is_jacobi(s) else 0
@@ -258,11 +270,20 @@ class LLMEngine:
         ar = [s for s in seqs if not self._is_jacobi(s)]
         for i in range(0, len(ar), max_b):
             self._ar_step(ar[i : i + max_b])
+        mr_groups: Dict[tuple, List[Sequence]] = {}
         groups: Dict[tuple, List[Sequence]] = {}
         for s in seqs:
-            if self._is_jacobi(s):
-                sp = s.sampling_params
+            sp = s.sampling_params
+            if sp.decode_strategy == self.MR:
+                k = (sp.jacobi_block_len, max(1, sp.jacobi_max_blocks),
+                     max(1, sp.jacobi_n_gram_pool_size), sp.ignore_eos)
+                mr_groups.setdefault(k, []).append(s)
+            elif self._is_jacobi(s):
                 groups.setdefault((sp.jacobi_block_len, sp.ignore_eos), []).append(s)
+        for (L, K, C, ignore_eos), group in mr_groups.items():
+            for i in range(0, len(group), max_b):
+                self._mr_dispatch(
+                    group[i : i + max_b], L, K, C, -1 if ignore_eos else self.config.eos)
         for (L, ignore_eos), group in groups.items():
             for i in range(0, len(group), max_b):
                 self._jacobi_chunk(group[i : i + max_b], L, -1 if ignore_eos else self.config.eos)
@@ -291,8 +312,10 @@ class LLMEngine:
             self.stats["generated_tokens"] += 1
         self.stats["ar_steps"] += 1
 
-    def _jacobi_chunk(self, seqs: List[Sequence], L: int, eos_id: int) -> None:
-        """Run one greedy Jacobi chunk for a group and commit its tokens."""
+    def _jacobi_chunk(self, seqs: List[Sequence], L: int, eos_id: int,
+                      stat_key: Optional[str] = None) -> None:
+        """Run one greedy Jacobi chunk for a group and commit its tokens;
+        `stat_key` names a counter that is credited the chunk's iterations."""
         B = _bucket(len(seqs), self.config.batch_buckets)
         n = len(seqs)
         capacity = np.zeros((B,), np.int32)
@@ -346,10 +369,252 @@ class LLMEngine:
             s.draft = draft_out[i]
             s.jacobi_iters = int(iters_out[i])
             self.stats["generated_tokens"] += int(gen[i])
-        self.stats["jacobi_iterations"] += int(iters_out[:n].sum() - iters0[:n].sum())
+        it_delta = int(iters_out[:n].sum() - iters0[:n].sum())
+        self.stats["jacobi_iterations"] += it_delta
+        if stat_key:
+            self.stats[stat_key] = self.stats.get(stat_key, 0) + it_delta
         # loop trips this chunk = the slowest row's iterations
         self.stats["chunk_forwards"] += int((iters_out[:n] - iters0[:n]).max(initial=0))
         self.stats["chunk_calls"] += 1
+
+    # ------------------------------------------------------------------
+    def _mr_dispatch(self, seqs: List[Sequence], N: int, K: int, C: int, eos_id: int) -> None:
+        """Route one MR chunk through the measured auto-policy
+        (engine/mr_policy.py): full MR / MR without candidates / RA-only /
+        TRUE single-block.  All are greedy and commit identical tokens, so
+        the arm only changes throughput, never output."""
+        if not self.config.jacobi_mr_auto_policy or C < 1:
+            self._multiblock_chunk(seqs, N, K, C, eos_id)
+            return
+        pol = self._mr_policies.get((N, K, C))
+        if pol is None:
+            pol = self._mr_policies[(N, K, C)] = MRAutoPolicy(
+                probe_chunks=self.config.jacobi_mr_probe_chunks,
+                reprobe_every=self.config.jacobi_mr_reprobe_every,
+                n_arms=4 if self.config.jacobi_mr_single_arm else 3,
+                # an arm's first call may pay one-time set-up (a kernel build):
+                # keep it out of the probe window
+                discard_first=True,
+            )
+        arm = pol.pick()
+        force = os.environ.get("JF_MR_FORCE_ARM")
+        if force:
+            arm = int(force)
+            if arm not in range(pol.n_arms):
+                raise ValueError(
+                    f"JF_MR_FORCE_ARM={force!r} names no arm: expected 0..{pol.n_arms - 1}")
+        # Arm transitions happen OUTSIDE the timed window: they are one-time
+        # costs of probe rotation, absent in the locked steady state the
+        # measurement predicts.
+        if arm == ARM_SINGLE:
+            self._mr_to_single(seqs, N)
+        else:
+            self._mr_reenter(seqs, N, K, C)
+        gen0 = self.stats["generated_tokens"]
+        t0 = time.perf_counter()
+        if arm == ARM_SINGLE:
+            # TRUE single-block: the sliding-window greedy chunk program
+            self._jacobi_chunk(seqs, N, eos_id, stat_key="mr_single")
+        else:
+            # The three MR arms run the SAME chunk program over the SAME
+            # carried state; the knobs only gate which tiers can engage:
+            #   arm 1 disables candidates: lookahead_start = N+1 can never be
+            #     reached by block acceptance (<= N);
+            #   arm 2 additionally stops pseudo spawning (spawn threshold
+            #     N+1), draining to the RA-only tier (N-token forwards).
+            self._multiblock_chunk(
+                seqs, N, K, C, eos_id,
+                la_override=(N + 1) if arm >= 1 else None,
+                spawn_override=(N + 1) if arm == 2 else None,
+            )
+        # both chunk paths end with a host readback, so this wall time is real
+        dt = time.perf_counter() - t0
+        toks = self.stats["generated_tokens"] - gen0
+        # drain edge: some row hit its finish condition during this chunk; its
+        # collapsed per-slot yield is batch structure, not workload drift
+        drained = any(
+            s.num_completion_tokens >= s.max_tokens
+            or (eos_id >= 0 and len(s) > 0 and s.last_token == eos_id)
+            for s in seqs
+        )
+        pol.record(arm, toks, dt, slots=len(seqs), drained=drained)
+
+    def _mr_to_single(self, seqs: List[Sequence], N: int) -> None:
+        """Hand MR state off to the single-block program.  Exact at ANY chunk
+        boundary: single-block's draft[0] is the last committed token (always
+        known) and its verifier never pre-commits, so the speculative tail
+        can be anything; it is seeded with the RA block's draft (whose
+        position in the token stream is exactly the commit point) to carry
+        the MR lookahead work across the handoff."""
+        for s in seqs:
+            st = s.mb_state
+            if st is None:
+                continue
+            ra = int(st["ra"])
+            dlen = int(st["blk_dlen"][ra])
+            d = np.empty((N,), np.int32)
+            d[0] = s.last_token
+            take = min(max(dlen, 0), N - 1)
+            if take:
+                d[1 : 1 + take] = np.asarray(st["blk_draft"][ra][:take])
+            if 1 + take < N:
+                d[1 + take :] = self.rng.randint(0, self.model_cfg.vocab_size, N - 1 - take)
+            s.draft = d
+            s.mb_state = None
+
+    def _mr_reenter(self, seqs: List[Sequence], N: int, K: int, C: int) -> None:
+        """Re-enter the MR state machine from single-block state.  MR
+        pre-commits RA draft[0] unconditionally (it is by invariant the
+        model's greedy continuation, verified in the previous iteration), so
+        the sliding draft's spec[0], which is UNVERIFIED after an AR
+        fallback, cannot seed it directly.  One non-committing AR forward
+        recomputes the verified continuation; the rest of the sliding draft
+        carries over as the speculative tail."""
+        need = [s for s in seqs if s.mb_state is None and s.draft is not None]
+        if not need:
+            return
+        B = _bucket(len(need), self.config.batch_buckets)
+        last = np.zeros((B,), np.int32)
+        lens = np.ones((B,), np.int32)
+        active = np.zeros((B,), bool)
+        for i, s in enumerate(need):
+            last[i] = s.last_token
+            lens[i] = len(s)
+            active[i] = True
+        # temperature 0 -> greedy argmax; the write re-writes the seed's own
+        # KV slot with identical content (a deterministic function of the
+        # prefix), so the cache is unchanged and nothing is committed
+        self.kv, nxt = runner.ar_decode_step(
+            self.params, self.model_cfg, self.rope, self.kv,
+            self._tensor(last), self._tensor(lens), self._pad_block_table(need, B),
+            self._tensor(active), self._tensor(np.zeros((B,), np.float32)), self.generator,
+        )
+        nxt = nxt.cpu().numpy()
+        for i, s in enumerate(need):
+            old = np.asarray(s.draft)
+            draft0 = np.empty((N,), np.int32)
+            draft0[0] = int(nxt[i])
+            # old = [seed, spec0, spec1, ...]; spec0 is superseded by the
+            # verified continuation, the rest stays as the tail guess
+            take = min(max(old.shape[0] - 2, 0), N - 1)
+            if take:
+                draft0[1 : 1 + take] = old[2 : 2 + take]
+            if 1 + take < N:
+                draft0[1 + take :] = self.rng.randint(
+                    0, self.model_cfg.vocab_size, N - 1 - take)
+            s.draft = None
+            s.mb_state = self._mb_bootstrap(s, draft0, N, K, C)
+
+    def mr_policy_snapshot(self) -> Dict[str, Any]:
+        return {str(k): p.snapshot() for k, p in self._mr_policies.items()}
+
+    def _mb_bootstrap(self, s: Sequence, draft0: np.ndarray, N: int, K: int, C: int) -> dict:
+        """Fresh MR state with one RA block at the current commit point.
+        `draft0[0]` MUST be the model's verified greedy continuation of the
+        committed prefix (prefill bootstrap or the re-entry AR forward): the
+        MR verifier pre-commits it unconditionally."""
+        W = 2 * N
+        bd = np.zeros((K, N), np.int32)
+        bd[0] = draft0
+        return {
+            "blk_draft": bd,
+            "blk_dlen": np.asarray([N] + [0] * (K - 1), np.int32),
+            "blk_acc": np.zeros((K,), np.int32),
+            "blk_acc_toks": np.zeros((K, N), np.int32),
+            "blk_base": np.asarray([len(s)] + [0] * (K - 1), np.int32),
+            "blk_active": np.asarray([True] + [False] * (K - 1), bool),
+            "ra": np.int32(0),
+            "n_active": np.int32(1),
+            "pool": np.zeros((C, W), np.int32),
+            "pool_len": np.zeros((C,), np.int32),
+            "pool_next": np.int32(0),
+            "last_next": np.int32(draft0[0]),
+        }
+
+    def _multiblock_chunk(
+        self, seqs: List[Sequence], N: int, K: int, C: int, eos_id: int,
+        la_override: Optional[int] = None,
+        spawn_override: Optional[int] = None,
+    ) -> None:
+        """One BATCHED chunk of multiblock + rejection-recycling decoding."""
+        W = 2 * N
+        pad_id = max(self.config.pad, 0)
+        B = _bucket(len(seqs), self.config.batch_buckets)
+        n = len(seqs)
+
+        for s in seqs:
+            if s.mb_state is None:
+                pf = s.prefill_draft if s.prefill_draft is not None else np.zeros(0, np.int32)
+                draft0 = np.full((N,), pad_id, np.int32)
+                m = min(len(pf), N)
+                draft0[:m] = pf[:m]
+                if m < N:
+                    draft0[m:] = self.rng.randint(0, self.model_cfg.vocab_size, N - m)
+                s.prefill_draft = None
+                s.mb_state = self._mb_bootstrap(s, draft0, N, K, C)
+
+        def stack(key):
+            first = np.asarray(seqs[0].mb_state[key])
+            out = np.zeros((B,) + first.shape, first.dtype)
+            for i, s in enumerate(seqs):
+                out[i] = s.mb_state[key]
+            return self._tensor(out)
+
+        tokens = np.zeros((B, self.cap_tokens), np.int32)
+        cur_len = np.ones((B,), np.int32)
+        eos = np.ones((B,), bool)  # padding rows inert
+        iters = np.zeros((B,), np.int32)
+        capacity = np.zeros((B,), np.int32)
+        max_new = np.zeros((B,), np.int32)
+        max_iters = np.ones((B,), np.int32)
+        spawn_thr = np.full((B,), N, np.int32)
+        la_start = np.zeros((B,), np.int32)
+        for i, s in enumerate(seqs):
+            sp = s.sampling_params
+            tokens[i, : len(s)] = s.token_ids
+            cur_len[i] = len(s)
+            eos[i] = False
+            iters[i] = s.jacobi_iters
+            capacity[i] = min(self.block_manager.capacity_tokens(s), self.cap_tokens - 1)
+            max_new[i] = max(0, s.max_tokens - s.num_completion_tokens)
+            max_iters[i] = min(sp.jacobi_max_iterations, 2**30)
+            spawn_thr[i] = (
+                spawn_override if spawn_override is not None
+                else int(math.ceil(sp.jacobi_spawn_ratio * N))
+            )
+            la_start[i] = (
+                la_override if la_override is not None
+                else int(math.ceil(sp.jacobi_lookahead_start_ratio * N))
+            )
+
+        res = jacobi_chunk_multiblock(
+            self.params, self.model_cfg, self.rope, self.kv,
+            self._tensor(tokens), self._tensor(cur_len),
+            *(stack(k) for k in STATE_KEYS),
+            self._tensor(eos), self._tensor(iters), self._pad_block_table(seqs, B),
+            self._tensor(capacity), self._tensor(max_new), eos_id, pad_id,
+            self._tensor(spawn_thr), self._tensor(la_start), self._tensor(max_iters),
+            N=N, K=K, C=C, W=W,
+            chunk_budget=self.config.jacobi_chunk_tokens,
+            chunk_iters=self.config.jacobi_chunk_iters,
+        )
+        self.kv = res["kv"]
+        host = {k: v.cpu().numpy() for k, v in res.items() if k != "kv"}
+        toks, cur_out, iters_out, gen = (
+            host[k] for k in ("tokens", "cur_len", "iters", "generated"))
+        for i, s in enumerate(seqs):
+            s.extend_tokens(toks[i, len(s) : cur_out[i]].tolist())
+            s.num_cached_tokens = len(s) - 1
+            s.jacobi_iters = int(iters_out[i])
+            for k in STATE_KEYS:
+                s.mb_state[k] = host[k][i]
+            self.stats["generated_tokens"] += int(gen[i])
+        self.stats["jacobi_iterations"] += int(iters_out[:n].sum() - iters[:n].sum())
+        # loop trips this chunk = the slowest row's iterations
+        self.stats["chunk_forwards"] += int((iters_out[:n] - iters[:n]).max(initial=0))
+        self.stats["chunk_calls"] += 1
+        for name, count in zip(("mr_full", "mr_nocand", "mr_ra_only"), host["tiers"].tolist()):
+            self.stats[name] = self.stats.get(name, 0) + int(count)
 
     # ------------------------------------------------------------------
     def exit(self) -> None:

@@ -1,8 +1,9 @@
 """Request state (copy of `jacobiforcing_tpu/engine/sequence.py`).
 
 All host state lives in one process; device-side decode state lives in
-fixed-shape tensors owned by the engine, not the Sequence.  The on-policy and
-multiblock (MR) fields of the JAX version come with those decoders.
+fixed-shape tensors owned by the engine, not the Sequence.  The multiblock
+(MR) decoder's per-sequence state is carried between chunks as `mb_state`;
+the on-policy fields of the JAX version come with that decoder.
 """
 
 from __future__ import annotations
@@ -38,6 +39,10 @@ class Sequence:
         self.prefill_draft: Optional[np.ndarray] = None
         self.draft: Optional[np.ndarray] = None  # [L] int32, draft[0] = seed
         self.jacobi_iters = 0
+        # multiblock (MR) state carried between chunks (numpy arrays, the dict
+        # of LLMEngine._mb_bootstrap); its positions are semantic, so it
+        # survives a preemption and re-prefill
+        self.mb_state: Optional[dict] = None
 
     def __len__(self) -> int:
         return len(self.token_ids)

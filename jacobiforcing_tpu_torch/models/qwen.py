@@ -6,6 +6,8 @@ linear weights as [in, out] for `x @ W`.  The decoder runs as a Python loop
 over layers; per layer it scatters the new K/V into the cache (in place) and
 then attends through `ops/attention.paged_attention`, so one attention path
 serves prefill, AR decode and Jacobi blocks, as in the JAX package.
+`forward_spec` is the speculative forward of the multiblock (MR) decoder: it
+reads the committed cache, writes nothing, and returns the block's K/V.
 
 Sums are accumulated in float32, or float64 for a float64 model, exactly as
 `acc_dtype` does there.  Qwen2-style (QKV bias) and Qwen3-style (per-head
@@ -21,7 +23,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from jacobiforcing_tpu_torch.ops.attention import paged_attention
+from jacobiforcing_tpu_torch.ops.attention import paged_attention, paged_attention_with_block
 from jacobiforcing_tpu_torch.ops.kv_cache import KVCache, write_kv, write_plan
 from jacobiforcing_tpu_torch.utils.device import resolve_device
 
@@ -263,40 +265,95 @@ def forward(
 
     lp = params["layers"]
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    acc = acc_dtype(cfg.dtype)
     h = x
     for i in range(cfg.num_layers):
         w = {name: t[i] for name, t in lp.items()}
-        hn = rms_norm(h, w["ln1"], cfg.rms_norm_eps)
-        q = hn @ w["wq"]
-        kk = hn @ w["wk"]
-        vv = hn @ w["wv"]
-        if cfg.qkv_bias:
-            q = q + w["bq"]
-            kk = kk + w["bk"]
-            vv = vv + w["bv"]
-        q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
-        kk = kk.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-        vv = vv.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-        if cfg.qk_norm:
-            q = rms_norm(q, w["q_norm"], cfg.rms_norm_eps)
-            kk = rms_norm(kk, w["k_norm"], cfg.rms_norm_eps)
-        q = apply_rope(q, cos, sin)
-        kk = apply_rope(kk, cos, sin)
-
+        q, kk, vv = _layer_qkv(cfg, w, h, cos, sin)
         k_l, v_l = kv_cache.k[i], kv_cache.v[i]
         write_kv(k_l, v_l, kk, vv, slots, plan)
         o = paged_attention(
             q, k_l, v_l, block_tables, cache_lens, positions, scale, page_size=page,
         )  # [B, T, NH, D]
-
-        h = h + o.reshape(B, T, cfg.q_size) @ w["wo"]
-        hn = rms_norm(h, w["ln2"], cfg.rms_norm_eps)
-        g = hn @ w["w_gate"]
-        u = hn @ w["w_up"]
-        h = h + (F.silu(g.to(acc)).to(u.dtype) * u) @ w["w_down"]
+        h = _layer_out(cfg, w, h, o)
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     return h, kv_cache
+
+
+def _layer_qkv(cfg: ModelConfig, w, h, cos, sin):
+    """Pre-norm, QKV projection (+bias / qk-norm) and RoPE of one layer:
+    (q [B,T,NH,D], k [B,T,KH,D], v [B,T,KH,D])."""
+    B, T, _ = h.shape
+    hn = rms_norm(h, w["ln1"], cfg.rms_norm_eps)
+    q = hn @ w["wq"]
+    kk = hn @ w["wk"]
+    vv = hn @ w["wv"]
+    if cfg.qkv_bias:
+        q = q + w["bq"]
+        kk = kk + w["bk"]
+        vv = vv + w["bv"]
+    q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
+    kk = kk.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    vv = vv.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, w["q_norm"], cfg.rms_norm_eps)
+        kk = rms_norm(kk, w["k_norm"], cfg.rms_norm_eps)
+    return apply_rope(q, cos, sin), apply_rope(kk, cos, sin), vv
+
+
+def _layer_out(cfg: ModelConfig, w, h, o):
+    """Output projection of the attention result `o` and the MLP, both residual."""
+    B, T, _ = h.shape
+    h = h + o.reshape(B, T, cfg.q_size) @ w["wo"]
+    hn = rms_norm(h, w["ln2"], cfg.rms_norm_eps)
+    g = hn @ w["w_gate"]
+    u = hn @ w["w_up"]
+    return h + (F.silu(g.to(acc_dtype(cfg.dtype))).to(u.dtype) * u) @ w["w_down"]
+
+
+def forward_spec(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    input_ids: torch.Tensor,  # [B, T] speculative token block (RA/candidates/pseudos)
+    positions: torch.Tensor,  # [B, T] semantic position of each token
+    kv_cache: KVCache,
+    block_tables: torch.Tensor,  # [B, max_pages]
+    cache_lens: torch.Tensor,  # [B] committed KV length
+    intra_mask: torch.Tensor,  # [B, T, T] bool: visibility within the block
+    rope: Tuple[torch.Tensor, torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Speculative forward: reads the committed paged KV, writes NOTHING.
+
+    Returns (hidden [B, T, H], k_new [layers, B, T, KH, D], v_new [...]), so
+    the caller can scatter only the verified winner's K/V into the cache.
+    """
+    if kv_cache.k.dtype != cfg.dtype:
+        # the JAX version fake-quantizes the in-flight block for a scaled
+        # (fp8/int8) cache; narrow KV storage is not ported yet
+        raise NotImplementedError(f"a KV cache stored as {kv_cache.k.dtype} under a "
+                                  f"{cfg.dtype} model is not supported by the PyTorch port yet")
+    block_tables = block_tables.to(torch.int32).contiguous()
+    cache_lens = cache_lens.to(torch.int32).contiguous()
+    intra_mask = intra_mask.contiguous()
+    pos_l = positions.long().clamp(max=cfg.max_position - 1)
+
+    h = params["embed"][input_ids.long()].to(cfg.dtype)
+    cos_t, sin_t = rope
+    cos, sin = cos_t[pos_l], sin_t[pos_l]
+    lp = params["layers"]
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    k_new, v_new = [], []
+    for i in range(cfg.num_layers):
+        w = {name: t[i] for name, t in lp.items()}
+        q, kk, vv = _layer_qkv(cfg, w, h, cos, sin)
+        o = paged_attention_with_block(
+            q, kv_cache.k[i], kv_cache.v[i], block_tables, cache_lens, kk, vv, intra_mask,
+            scale, page_size=kv_cache.page_size,
+        )
+        h = _layer_out(cfg, w, h, o)
+        k_new.append(kk)
+        v_new.append(vv)
+    h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+    return h, torch.stack(k_new), torch.stack(v_new)
 
 
 def _head(params: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:

@@ -13,8 +13,17 @@ Two implementations:
     kernel (csrc/paged_attention.cu).  CUDA tensors always take it, and an
     input it cannot serve raises instead of falling back.
 
-Left out on purpose (TPU-only): the flat-exp2 softmax and its calibration,
-the `D % 128` feasibility gate, and the serving-mesh shard_map dispatch.
+`paged_attention_with_block` is the speculative attention of the multiblock
+(MR) decoder: the committed paged keys (length mask only) plus an in-flight
+block that is in no cache, under an arbitrary intra-block mask, one softmax
+over both.  It has the same two implementations
+(`paged_attention_with_block_ref`, `ops/spec_attention_cuda.spec_attention_cuda`
+for csrc/spec_attention.cu) and the same dispatch rule.
+
+Left out on purpose (TPU-only): the flat-exp2 softmax, its calibration and
+score guard, the `JF_ATTN_IMPL` / `JF_SPEC_ONLY_T` switches, the `D % 128`
+feasibility gate and head-group tiling, and the serving-mesh shard_map
+dispatch.
 """
 
 from __future__ import annotations
@@ -84,5 +93,76 @@ def paged_attention(
         )
     return paged_attention_ref(
         q, k_cache_l, v_cache_l, block_tables, cache_lens, positions, scale,
+        page_size=page_size,
+    )
+
+
+def paged_attention_with_block_ref(
+    q: torch.Tensor,  # [B, T, NH, D]
+    k_cache_l: torch.Tensor,  # [KH, num_slots, D]
+    v_cache_l: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, P]
+    cache_lens: torch.Tensor,  # [B] committed KV length (all attended)
+    k_new: torch.Tensor,  # [B, T, KH, D] in-flight block K (NOT in the cache)
+    v_new: torch.Tensor,
+    intra_mask: torch.Tensor,  # [B, T, T] bool: query attends in-flight key?
+    scale: float,
+    *,
+    page_size: int,
+) -> torch.Tensor:
+    """Plain version of the dense path of the JAX `paged_attention_with_block`:
+    committed scores masked by `key < cache_len`, in-flight scores by
+    `intra_mask`, ONE softmax over their concatenation, probabilities cast to
+    `q.dtype`, and the two value products summed."""
+    B, T, NH, D = q.shape
+    KH = k_cache_l.shape[0]
+    groups = NH // KH
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    neg = torch.tensor(_NEG_INF, dtype=acc, device=q.device)
+
+    kc = gather_pages(k_cache_l, block_tables, page_size).to(q.dtype)  # [B,S,KH,D]
+    vc = gather_pages(v_cache_l, block_tables, page_size).to(q.dtype)
+    S = kc.shape[1]
+
+    qg = q.reshape(B, T, KH, groups, D).permute(0, 2, 3, 1, 4).to(acc)  # [B,KH,G,T,D]
+    sc_cache = torch.einsum("bhgtd,bshd->bhgts", qg, kc.to(acc)) * scale
+    key_pos = torch.arange(S, device=q.device)[None, :]
+    valid_c = (key_pos < cache_lens[:, None].long())[:, None, None, None, :]
+    sc_cache = torch.where(valid_c, sc_cache, neg)
+
+    sc_blk = torch.einsum("bhgtd,bshd->bhgts", qg, k_new.to(q.dtype).to(acc)) * scale
+    sc_blk = torch.where(intra_mask[:, None, None, :, :], sc_blk, neg)
+
+    probs = torch.softmax(torch.cat([sc_cache, sc_blk], dim=-1), dim=-1).to(q.dtype)
+    out = torch.einsum("bhgts,bshd->bhgtd", probs[..., :S], vc) + torch.einsum(
+        "bhgts,bshd->bhgtd", probs[..., S:], v_new.to(q.dtype)
+    )
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, NH, D)
+
+
+def paged_attention_with_block(
+    q,
+    k_cache_l,
+    v_cache_l,
+    block_tables,
+    cache_lens,
+    k_new,
+    v_new,
+    intra_mask,
+    scale,
+    *,
+    page_size: int,
+) -> torch.Tensor:
+    """CUDA tensors go to the kernel (which raises on what it cannot serve);
+    CPU tensors go to the plain version."""
+    if q.is_cuda:
+        from jacobiforcing_tpu_torch.ops.spec_attention_cuda import spec_attention_cuda
+
+        return spec_attention_cuda(
+            q, k_cache_l, v_cache_l, block_tables, cache_lens, k_new, v_new, intra_mask, scale,
+            page_size=page_size,
+        )
+    return paged_attention_with_block_ref(
+        q, k_cache_l, v_cache_l, block_tables, cache_lens, k_new, v_new, intra_mask, scale,
         page_size=page_size,
     )

@@ -80,7 +80,8 @@ def test_bench_generate_demo_anchor(port_llm, tmp_path):
 
 @pytest.mark.parametrize("kw", [
     dict(quantization="int8"), dict(kv_cache_dtype="fp8"), dict(tensor_parallel_size=2),
-    dict(jacobi_async_host=True), dict(jacobi_mr_auto_policy=False), dict(stop_token_ids=(2,)),
+    dict(jacobi_async_host=True), dict(stop_token_ids=(2,)), dict(data_parallel_size=2),
+    dict(kv_cache_dtype="int8"),
 ])
 def test_unported_config_options_raise(kw):
     with pytest.raises(NotImplementedError):
@@ -88,8 +89,7 @@ def test_unported_config_options_raise(kw):
 
 
 @pytest.mark.parametrize("strategy,temperature", [
-    ("jacobi_multiblock_rejection_recycling", 0.0), ("jacobi_nongreedy", 0.7),
-    ("jacobi_on_policy", 0.7), ("jacobi", 0.7),
+    ("jacobi_nongreedy", 0.7), ("jacobi_on_policy", 0.7), ("jacobi", 0.7),
 ])
 def test_unported_strategies_raise(port_llm, strategy, temperature):
     sp = SamplingParams(temperature=temperature, decode_strategy=strategy)

@@ -1,0 +1,159 @@
+"""The port's speculative (MR) attention against the JAX package.
+
+The same numpy inputs go through `jacobiforcing_tpu.ops.attention.
+paged_attention_with_block` (its dense XLA path, which the CPU backend
+takes), through the TPU kernel `spec_attention_pallas` in interpret mode with
+the exact online softmax, and through the port's plain version
+`paged_attention_with_block_ref`.  Tolerances, relative to max|ref|: fp64
+1e-9 (the same masked softmax, only the summation order differs), f32 1e-5.
+Rows with no visible key at all are left out of the comparison with the TPU
+kernel: it writes zeros there, the dense versions a uniform average, and the
+decoder discards such rows.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from jacobiforcing_tpu.ops.attention import paged_attention_with_block as j_with_block
+from jacobiforcing_tpu.ops.pallas.spec_attention import spec_attention_pallas
+from jacobiforcing_tpu_torch.engine.multiblock import tree_mask
+from jacobiforcing_tpu_torch.ops import spec_attention_cuda as sac
+from jacobiforcing_tpu_torch.ops.attention import (
+    paged_attention_with_block,
+    paged_attention_with_block_ref,
+)
+
+PAGE = 16
+
+
+def _case(G, mask_kind, dtype, seed, D=128, KH=2, N=4, K=2, C=2, lens=(37, 0, 80, 1)):
+    """Four sequences: ragged committed lengths including 0, row 3 a
+    batch-bucket padding row (all -1 table, length 1, all-false mask)."""
+    r = np.random.RandomState(seed)
+    B = len(lens)
+    S = 1 + C + (K - 1)
+    T = S * N
+    pages_per_seq, num_pages = 6, 6 * B + 3
+    q = r.randn(B, T, KH * G, D).astype(dtype)
+    k = r.randn(KH, num_pages * PAGE, D).astype(dtype)
+    v = r.randn(KH, num_pages * PAGE, D).astype(dtype)
+    k_new = r.randn(B, T, KH, D).astype(dtype)
+    v_new = r.randn(B, T, KH, D).astype(dtype)
+    perm = r.permutation(num_pages)
+    bt = np.full((B, pages_per_seq), -1, np.int32)
+    for b in range(B - 1):
+        n = -(-lens[b] // PAGE)
+        bt[b, :n] = perm[b * pages_per_seq : b * pages_per_seq + n]
+    if mask_kind == "tree":
+        sees = tree_mask(N, K, C, "cpu").numpy()
+        tok_valid = r.rand(B, T) < 0.8  # holes, as inactive segments and short drafts leave
+        tok_valid[:, 0] = True
+        mask = sees[None] & tok_valid[:, :, None] & tok_valid[:, None, :]
+    else:
+        mask = r.rand(B, T, T) < 0.4
+    mask[B - 1] = False
+    return q, k, v, bt, np.asarray(lens, np.int32), k_new, v_new, mask
+
+
+def _port(args, scale):
+    return paged_attention_with_block_ref(
+        *[torch.from_numpy(a) for a in args], scale, page_size=PAGE).numpy()
+
+
+def _rel_err(out, ref):
+    return np.abs(out - ref).max() / np.abs(ref).max()
+
+
+@pytest.mark.parametrize("G", [1, 2, 7])
+@pytest.mark.parametrize("mask_kind", ["tree", "random"])
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-9), (np.float32, 1e-5)])
+def test_ref_matches_jax_dense(G, mask_kind, dtype, tol):
+    args = _case(G, mask_kind, dtype, seed=G)
+    scale = 1.0 / np.sqrt(args[0].shape[-1])
+    ref = np.asarray(j_with_block(*[jnp.asarray(a) for a in args], scale, page_size=PAGE))
+    out = _port(args, scale)
+    assert out.dtype == dtype and np.isfinite(out).all()
+    assert _rel_err(out, ref) <= tol
+
+
+@pytest.mark.parametrize("G", [1, 2, 7])
+@pytest.mark.parametrize("mask_kind", ["tree", "random"])
+def test_ref_matches_pallas_interpret(G, mask_kind):
+    """Against the TPU kernel itself (interpret mode, online softmax), f32."""
+    args = _case(G, mask_kind, np.float32, seed=10 + G)
+    scale = 1.0 / np.sqrt(args[0].shape[-1])
+    pallas = np.asarray(spec_attention_pallas(
+        *[jnp.asarray(a) for a in args], scale, page_size=PAGE, interpret=True,
+        softmax="online"))
+    out = _port(args, scale)
+    assert np.isfinite(pallas).all()
+    lens, mask = args[4], args[7]
+    # rows with a visible key; the padding row counts (length 1: the TPU kernel
+    # and the dense versions all clamp its -1 pages onto page 0)
+    seen = (lens[:, None] > 0) | mask.any(-1)  # [B, T]
+    assert seen.any()
+    assert _rel_err(out[seen], pallas[seen]) <= 1e-5
+
+
+def test_dispatch_cpu_takes_plain_version():
+    args = [torch.from_numpy(a) for a in _case(2, "tree", np.float32, seed=3)]
+    before = sac.spec_attention_cuda.launches
+    out = paged_attention_with_block(*args, 0.2, page_size=PAGE)
+    assert torch.equal(out, paged_attention_with_block_ref(*args, 0.2, page_size=PAGE))
+    assert sac.spec_attention_cuda.launches == before
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(D=48), "head_dim"),
+    (dict(dtype=torch.float16), "dtype"),
+    (dict(page=8), "page_size"),
+    (dict(mask_dtype=torch.uint8), "bool"),
+    (dict(new_T=3), "k_new"),
+    (dict(), "CUDA"),
+])
+def test_kernel_wrapper_rejects_unsupported_inputs(change, match):
+    """check_inputs raises on what the kernel does not take (it runs before
+    any launch, so this holds without a card; valid CPU tensors end at the
+    device check)."""
+    D = change.get("D", 64)
+    dtype = change.get("dtype", torch.float32)
+    page = change.get("page", 16)
+    T = 4
+    q = torch.zeros(1, T, 4, D, dtype=dtype)
+    k = torch.zeros(2, 4 * page, D, dtype=dtype)
+    k_new = torch.zeros(1, change.get("new_T", T), 2, D, dtype=dtype)
+    mask = torch.zeros(1, T, T, dtype=change.get("mask_dtype", torch.bool))
+    bt = torch.zeros(1, 4, dtype=torch.int32)
+    lens = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match=match):
+        sac.check_inputs(q, k, k, bt, lens, k_new, k_new, mask, page)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_on_cuda(cuda, dtype):
+    """Hand-written kernel vs the plain version on the card, real rows only
+    (the padding row has to be finite).  f32: |err| <= 1e-5 * max|ref|; bf16:
+    per element |err| <= 2^-5 * |ref| + 2^-7 * max|ref| of its row."""
+    args = _case(7, "tree", np.float32, seed=5, N=32)
+    args = [torch.from_numpy(a).cuda() for a in args]
+    args = [a.to(dtype) if a.is_floating_point() else a for a in args]
+    out = paged_attention_with_block(*args, 1.0 / np.sqrt(128), page_size=PAGE)
+    ref = paged_attention_with_block_ref(*args, 1.0 / np.sqrt(128), page_size=PAGE)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    seen = ((args[4][:, None] > 0) | args[7].any(-1))[:3]
+    out, ref = out[:3][seen].float(), ref[:3][seen].float()
+    if dtype == torch.float32:
+        limit = 1e-5 * ref.abs().max()
+    else:
+        limit = ref.abs() * 2.0**-5 + ref.abs().amax(-1, keepdim=True) * 2.0**-7
+    assert ((out - ref).abs() <= limit).all()
