@@ -8,6 +8,8 @@ then attends through `ops/attention.paged_attention`, so one attention path
 serves prefill, AR decode and Jacobi blocks, as in the JAX package.
 `forward_spec` is the speculative forward of the multiblock (MR) decoder: it
 reads the committed cache, writes nothing, and returns the block's K/V.
+`forward_dense` is the training forward: no cache, differentiable, attention
+under a dense mask or through the block-sparse training kernels.
 
 Sums are accumulated in float32, or float64 for a float64 model, exactly as
 `acc_dtype` does there.  Qwen2-style (QKV bias) and Qwen3-style (per-head
@@ -22,8 +24,10 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from jacobiforcing_tpu_torch.ops.attention import paged_attention, paged_attention_with_block
+from jacobiforcing_tpu_torch.ops.train_attention import masked_attention, train_attention
 from jacobiforcing_tpu_torch.ops.kv_cache import KVCache, write_kv, write_plan
 from jacobiforcing_tpu_torch.utils.device import resolve_device
 
@@ -177,13 +181,33 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
+class _MmWide(torch.autograd.Function):
+    """x [M, K] @ w [K, N] on the card as one low-precision GEMM that
+    accumulates and writes `acc` (no wide copy of the weight).  The backward
+    is written out, so training does not depend on `torch.mm(out_dtype=...)`
+    having a derivative: the cotangent is cast to the operands' dtype and both
+    products accumulate in float32 inside the GEMM."""
+
+    @staticmethod
+    def forward(ctx, x, w, acc):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=acc)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = g @ w.T if ctx.needs_input_grad[0] else None
+        dw = x.T @ g if ctx.needs_input_grad[1] else None
+        return dx, dw, None
+
+
 def _mm_acc(x: torch.Tensor, w: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
     """x @ w with the result in `acc` (JAX `preferred_element_type=acc`)."""
     if x.dtype == acc:
         return x @ w
     if x.is_cuda:
-        # a bf16 GEMM that accumulates and writes float32 (no f32 weight copy)
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=acc)
+        out = _MmWide.apply(x.reshape(-1, x.shape[-1]), w, acc)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return x.to(acc) @ w.to(acc)
 
@@ -354,6 +378,57 @@ def forward_spec(
         v_new.append(vv)
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     return h, torch.stack(k_new), torch.stack(v_new)
+
+
+def forward_dense(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    input_ids: torch.Tensor,  # [B, T]
+    positions: torch.Tensor,  # [B, T] (shared RoPE positions for k_j/last_j packing)
+    rope: Tuple[torch.Tensor, torch.Tensor],
+    attn_mask: Optional[torch.Tensor] = None,  # [B|1, T, T] bool, True = visible
+    splash_spec: Optional[tuple] = None,  # static layout -> block-sparse kernels
+    remat: bool = False,  # recompute each layer's activations in the backward
+) -> torch.Tensor:
+    """Training-path forward: no KV cache, differentiable.  Returns [B, T, H].
+
+    `attn_mask` is the packed-trajectory mask of the consistency trainer; None
+    means plain causal.  With `splash_spec` = (prompt_len, T_pairs, seq_len, N,
+    variant, window_size) the mask is instead realised inside
+    `ops/train_attention.train_attention` (B must be 1): the hand-written
+    kernels on CUDA tensors, never an [T, T] mask.  A per-layer weight may be a
+    stacked tensor or a list of per-layer tensors.
+    """
+    B, T = input_ids.shape
+    pos_l = positions.long()
+    x = params["embed"][input_ids.long()].to(cfg.dtype)
+    cos_t, sin_t = rope
+    cos, sin = cos_t[pos_l], sin_t[pos_l]
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    if splash_spec is not None:
+        if B != 1:
+            raise ValueError("the block-sparse training attention packs one sequence per step")
+        p_len, t_pairs, seq_len, n_blk, variant, window = splash_spec
+    elif attn_mask is None:
+        idx = torch.arange(T, device=x.device)
+        attn_mask = (idx[:, None] >= idx[None, :])[None]  # [1, T, T] causal
+
+    def layer(h, w):
+        q, kk, vv = _layer_qkv(cfg, w, h, cos, sin)
+        if splash_spec is not None:
+            o = train_attention(q[0], kk[0], vv[0], prompt_len=p_len, T_pairs=t_pairs,
+                                seq_len=seq_len, N=n_blk, variant=variant,
+                                window_size=window)[None]
+        else:
+            o = masked_attention(q, kk, vv, attn_mask, scale)
+        return _layer_out(cfg, w, h, o)
+
+    lp = params["layers"]
+    h = x
+    for i in range(cfg.num_layers):
+        w = {name: t[i] for name, t in lp.items()}
+        h = checkpoint(layer, h, w, use_reentrant=False) if remat else layer(h, w)
+    return rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
 
 
 def _head(params: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:

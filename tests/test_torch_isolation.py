@@ -1,6 +1,8 @@
 """The port stands alone: no file of `jacobiforcing_tpu_torch/` and not
-`chip_smoke.py` imports `jax` or `jacobiforcing_tpu`, and a process that
-imports the port and runs a tiny CPU forward never loads jax."""
+`chip_smoke.py` imports `jax`, its training libraries (`optax`, `flax`), the
+`safetensors` package (the port reads and writes the format itself) or
+`jacobiforcing_tpu`, and a process that imports the port, runs a tiny CPU
+forward and takes a training step never loads any of them."""
 
 import ast
 import os
@@ -12,7 +14,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "jacobiforcing_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "jacobiforcing_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "safetensors", "jacobiforcing_tpu")
 
 
 def _imports(path):
@@ -43,7 +45,24 @@ pos = torch.arange(4)[None]
 h, _ = forward(params, cfg, ids, pos, kv, torch.tensor([[0, 1]]), torch.tensor([4]),
                rope_table(cfg))
 assert h.shape == (1, 4, cfg.hidden_size) and bool(torch.isfinite(h).all())
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "jacobiforcing_tpu")]
+import tempfile
+from jacobiforcing_tpu_torch import data
+from jacobiforcing_tpu_torch.train import sft
+from jacobiforcing_tpu_torch.train.trainer import TrainerArgs, train
+rows = data.pack_trajectories(data.synthesize_trajectories_masking(
+    [{"prompt_ids": [1, 2, 3], "full_ids": list(range(1, 20))}], chunk_size=8), 8)
+class Rows(list):
+    def __getitem__(self, i):
+        r = list.__getitem__(self, i)
+        return {"input_ids": r["complete_training_sequence_ids"], "prompt_len": r["prompt_ids_len"],
+                "T": len(r["traj_position_indices"])}
+with tempfile.TemporaryDirectory() as out:
+    res = train(TrainerArgs(output_dir=out, max_new_tokens=8, seq_bucket=64, attn_impl="splash",
+                            max_steps=2, log_steps=1), model_cfg=cfg, dataset=Rows(rows),
+                device="cpu", log_fn=lambda *_: None)
+assert res["step"] == 2
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("jax", "jaxlib", "optax", "flax", "safetensors", "jacobiforcing_tpu")]
 print("LOADED", bad)
 sys.exit(1 if bad else 0)
 """
