@@ -20,6 +20,15 @@ result line):
      call == the rows of a T=N call and a row of a B=8 call == the same row
      at B=1; times at T = 64 / 128 / 384.  Every timed shape prints kernel,
      plain-version and SDPA times beside the bound and is held to `check`.
+     Both kernels again on a narrow cache (fp8 e4m3 and int8 with per-row
+     scales, K/V magnitudes ~600): cases against the plain version, the same
+     bitwise checks, bitwise equality of an in-flight fake-quantized block
+     with its committed copy, and times with an fp8 cache.  The int4
+     dequant-matmul kernel against its plain version in f32 and bf16 at the
+     JAX test's shape, ragged M and K and the four Qwen2.5-7B linear shapes
+     at M = 4 / 256 / 1536 (tolerances in `check_int4`), its times beside the
+     bound and a bf16 GEMM on the pre-dequantized weight, and its path: one
+     decoder layer's seven linear layers through the dispatcher.
   3. `train_kernel`: the training-attention kernels (forward, dQ, dK/dV)
      against the plain version under autograd in float32: f32 and bf16, both
      head shapes, the three mask variants, rows shorter than their bucket, T
@@ -32,14 +41,22 @@ result line):
      through `LLM` and the port's `bench_generate.run`: `ar`, `jacobi` and
      `mr` (auto-policy off, then on) on all 64 held-out prompts.  All token
      streams must be identical, 2033 tokens, 64/64 EOS, and with the policy
-     off every MR tier (full / no-candidate / RA-only) must have run.
+     off every MR tier (full / no-candidate / RA-only) must have run.  Then
+     the same checkpoint served quantized (int8 weights, W8A8, an fp8 and an
+     int8 KV cache): inside each engine `jacobi` == `ar` == `mr`, counts
+     printed beside the JAX package's CPU runs.
   5. `full`: Qwen2.5-7B widths with random bf16 weights, 4 requests of
      256-1024 random prompt tokens through `LLM.generate`: prefill, AR,
      Jacobi and MR (policy off).  Each kernel's launch count is zeroed before
      each path and must grow in the paths that run it; the JSON line reports
      the Jacobi run's count for the paged kernel and the MR run's for the
      speculative one.
-  6. `train`: the consistency trainer through `train(TrainerArgs(...))` with
+  6. `full_quant`: Qwen2.5-7B widths with random int8 weights
+     (`init_quantized_params`), the same 4 requests: W8A8 with an fp8 KV cache
+     under `ar`, `jacobi` and `mr`, then weight-only int8 with an int8 KV
+     cache under `jacobi`; launch counts as in `full`, tok/s, iterations/s,
+     peak memory, and the device-time split of a profiled run.
+  7. `train`: the consistency trainer through `train(TrainerArgs(...))` with
      `attn_impl="splash"`.  (a) the demo checkpoint's widths in f32 from random
      weights: rows from `synthesize_trajectories_masking` ->
      `pack_trajectories` -> `JacobianDataset`; the first step's losses and
@@ -73,16 +90,25 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense tensor-core bf16; fp32 FMA
+KV_KINDS = {"fp8": torch.float8_e4m3fn, "int8": torch.int8}  # narrow KV storage with row scales
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEMO = os.path.join(REPO, "assets", "tpf_demo_n32_v7")
-SOURCES = ("paged_attention", "spec_attention", "train_attention")  # csrc/<name>.cu
+# csrc/<name>.cu
+SOURCES = ("paged_attention", "spec_attention", "train_attention", "int4_matmul")
 _TRAIN = dict(source="jacobiforcing_tpu_torch/csrc/train_attention.cu",
               replaces="jacobiforcing_tpu/ops/pallas/train_attention.py:112")
+_PAGED = dict(source="jacobiforcing_tpu_torch/csrc/paged_attention.cu",
+              replaces="jacobiforcing_tpu/ops/pallas/paged_attention.py:736")
+_SPEC = dict(source="jacobiforcing_tpu_torch/csrc/spec_attention.cu",
+             replaces="jacobiforcing_tpu/ops/pallas/spec_attention.py:245")
 KERNELS = {
-    "paged_attention": dict(source="jacobiforcing_tpu_torch/csrc/paged_attention.cu",
-                            replaces="jacobiforcing_tpu/ops/pallas/paged_attention.py:736"),
-    "spec_attention": dict(source="jacobiforcing_tpu_torch/csrc/spec_attention.cu",
-                           replaces="jacobiforcing_tpu/ops/pallas/spec_attention.py:245"),
+    "paged_attention": _PAGED,
+    "spec_attention": _SPEC,
+    # the same kernels on an fp8 e4m3 cache with per-row scales
+    "paged_attention_fp8": _PAGED,
+    "spec_attention_fp8": _SPEC,
+    "int4_matmul": dict(source="jacobiforcing_tpu_torch/csrc/int4_matmul.cu",
+                        replaces="jacobiforcing_tpu/ops/pallas/int4_matmul.py:53"),
     "train_attention_fwd": _TRAIN,
     "train_attention_dkdv": _TRAIN,
     "train_attention_dq": _TRAIN,
@@ -102,10 +128,23 @@ def log(*a):
 # ---------------------------------------------------------------------------
 
 
-def make_case(B, L, KH, G, D, page, ctx_max, dtype, seed, n_pad=0, full=False):
+def narrow_cache(x, kv):
+    """(stored rows, scales): x [KH, slots, D] at magnitudes ~600 (beyond the
+    e4m3 maximum, so the row scales matter) quantized row by row into the
+    storage type `kv` names, or (x, None) for kv=None."""
+    from jacobiforcing_tpu_torch.ops.kv_cache import quantize_rows
+
+    if kv is None:
+        return x, None
+    return quantize_rows(x.float() * 600.0, KV_KINDS[kv])
+
+
+def make_case(B, L, KH, G, D, page, ctx_max, dtype, seed, n_pad=0, full=False, kv=None):
     """Random paged inputs: shuffled pages, ragged lengths (all `ctx_max` when
     `full`), -1 table tails and `n_pad` batch-bucket padding rows (all -1
-    table, as the engine pads)."""
+    table, as the engine pads).  With `kv` ("fp8" / "int8") the cache is
+    stored narrow with per-row scales, K/V magnitudes ~600, and the queries are
+    scaled down by 600 so that the scores stay O(1)."""
     r = np.random.RandomState(seed)
     P = -(-(ctx_max + L) // page) + 1
     n_real = B - n_pad
@@ -134,7 +173,11 @@ def make_case(B, L, KH, G, D, page, ctx_max, dtype, seed, n_pad=0, full=False):
     k = torch.from_numpy(r.randn(KH, num_pages * page, D).astype(np.float32)).to(dev, dtype)
     v = torch.from_numpy(r.randn(KH, num_pages * page, D).astype(np.float32)).to(dev, dtype)
     t = lambda a: torch.from_numpy(a).to(dev)
-    return dict(q=q, k=k, v=v, bt=t(bt), clen=t(clen), pos=t(pos), page=page,
+    if kv is not None:
+        q = (q.float() / 600.0).to(dtype)
+    k, ks = narrow_cache(k, kv)
+    v, vs = narrow_cache(v, kv)
+    return dict(q=q, k=k, v=v, ks=ks, vs=vs, bt=t(bt), clen=t(clen), pos=t(pos), page=page,
                 scale=1.0 / math.sqrt(D), n_real=n_real)
 
 
@@ -142,14 +185,16 @@ def run_kernel(c):
     from jacobiforcing_tpu_torch.ops.paged_attention_cuda import paged_attention_cuda
 
     return paged_attention_cuda(c["q"], c["k"], c["v"], c["bt"], c["clen"], c["pos"],
-                                c["scale"], page_size=c["page"])
+                                c["scale"], page_size=c["page"], k_scale_l=c["ks"],
+                                v_scale_l=c["vs"])
 
 
 def run_plain(c):
     from jacobiforcing_tpu_torch.ops.attention import paged_attention_ref
 
     return paged_attention_ref(c["q"], c["k"], c["v"], c["bt"], c["clen"], c["pos"],
-                               c["scale"], page_size=c["page"])
+                               c["scale"], page_size=c["page"], k_scale_l=c["ks"],
+                               v_scale_l=c["vs"])
 
 
 def check(out, ref, n_real=None):
@@ -158,7 +203,9 @@ def check(out, ref, n_real=None):
     1e-5 * max|ref|.  bf16 (the plain version rounds the probabilities and
     the output to bf16): per element |err| <= 2^-5 * |ref| + 2^-7 * max|ref|
     of its row, i.e. a few bf16 ulps of the element and of its row, so a
-    long-context row whose outputs are ~0.03 is held to ~1e-3, not to 2e-2."""
+    long-context row whose outputs are ~0.03 is held to ~1e-3, not to 2e-2.
+    The same rules hold on a narrow cache: kernel and plain version both
+    dequantize a stored row in the query dtype, to the same bits."""
     bf16 = out.dtype == torch.bfloat16
     out, ref = out[:n_real].float(), ref[:n_real].float()
     err = (out - ref).abs()
@@ -193,7 +240,9 @@ def bound(c):
     it = q.element_size()
     clen = c["clen"][: c["n_real"]].long().cpu()
     pos = c["pos"][: c["n_real"]].long().cpu()
-    kv_bytes = 2 * int(clen.sum()) * KH * D * it
+    # a narrow cache: one byte per element and a float32 scale per row and head
+    kv_bytes = 2 * int(clen.sum()) * KH * (D * c["k"].element_size()
+                                           + (4 if c["ks"] is not None else 0))
     nbytes = (2 * q.numel() * it + kv_bytes + c["bt"].numel() * 4 + c["clen"].numel() * 4
               + c["pos"].numel() * 4)
     visible = torch.minimum(pos + 1, clen[:, None]).clamp(min=0).sum()
@@ -203,15 +252,22 @@ def bound(c):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def dense_kv(c, name):
+    """The case's pages of K or V gathered (and a narrow cache dequantized) to
+    dense [B, S, KH, D] in the query dtype."""
+    from jacobiforcing_tpu_torch.ops.attention import gather_dequant
+
+    return gather_dequant(c[name], c[name + "s"], c["bt"], c["page"], c["q"].dtype)
+
+
 def sdpa_ms(c):
     """One `scaled_dot_product_attention` call on the same function, with the
-    pages gathered to dense K/V beforehand (the gather is not timed)."""
-    from jacobiforcing_tpu_torch.ops.kv_cache import gather_pages
-
+    pages gathered to dense K/V (a narrow cache dequantized) beforehand;
+    neither is timed."""
     q, page = c["q"], c["page"]
     B, L, NH, D = q.shape
-    k = gather_pages(c["k"], c["bt"], page).permute(0, 2, 1, 3).contiguous()  # [B,KH,S,D]
-    v = gather_pages(c["v"], c["bt"], page).permute(0, 2, 1, 3).contiguous()
+    k = dense_kv(c, "k").permute(0, 2, 1, 3).contiguous()  # [B,KH,S,D]
+    v = dense_kv(c, "v").permute(0, 2, 1, 3).contiguous()
     S = k.shape[2]
     key = torch.arange(S, device=q.device)
     mask = (key[None, None, :] <= c["pos"][:, :, None]) & (key[None, None, :] < c["clen"][:, None, None])
@@ -246,10 +302,31 @@ def phase_kernel(timing):
                 if not ok:
                     raise AssertionError(f"kernel disagrees with the plain version: {tag}")
 
+    # the same on a narrow cache with per-row scales (fp8 e4m3, int8)
+    for kv in KV_KINDS:
+        for dname, dtype in dtypes.items():
+            for sname, KH, G, D, page in shapes:
+                for B, L, ctx, prefill in [(1, 1, 4096, False), (4, 64, 4096, False),
+                                           (8, 32, 2048, False), (1, 1024, 1024, True)]:
+                    c = make_case(B, L, KH, G, D, page, ctx, dtype, seed=n,
+                                  n_pad=(1 if B >= 4 else 0), full=prefill, kv=kv)
+                    n += 1
+                    out = run_kernel(c)
+                    torch.cuda.synchronize()
+                    finite = bool(torch.isfinite(out).all())
+                    err, worst, ok = check(out, run_plain(c), c["n_real"])
+                    ok = ok and finite
+                    tag = (f"{kv} KV {dname} {sname} B={B} L={L} ctx<={ctx}"
+                           f"{' prefill' if prefill else ''}")
+                    log(f"[kernel] {tag}: max_abs_err={err:.3e} max err/tol={worst:.3f} "
+                        f"finite={finite} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"kernel disagrees with the plain version: {tag}")
+
     # bitwise: a row from an L=1, B=1 call == the same row inside a B=8, L=64 block
-    for dname, dtype in dtypes.items():
+    for kv, (dname, dtype) in [(kv, d) for kv in (None, *KV_KINDS) for d in dtypes.items()]:
         for sname, KH, G, D, page in shapes:
-            c = make_case(8, 64, KH, G, D, page, 2048, dtype, seed=1000, n_pad=1)
+            c = make_case(8, 64, KH, G, D, page, 2048, dtype, seed=1000, n_pad=1, kv=kv)
             block = run_kernel(c)
             diffs = 0
             for b in (0, 3, 6):
@@ -263,20 +340,24 @@ def phase_kernel(timing):
                     same = torch.equal(row.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
                                        block[b, t].view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
                     diffs += 0 if same else 1
-            log(f"[kernel] bitwise AR-row == Jacobi-row {dname} {sname}: 9 rows, {diffs} differ "
-                f"{'ok' if diffs == 0 else 'FAIL'}")
+            log(f"[kernel] bitwise AR-row == Jacobi-row {dname} {sname} {kv or 'same-type'} KV: "
+                f"9 rows, {diffs} differ {'ok' if diffs == 0 else 'FAIL'}")
             if diffs:
                 raise AssertionError("AR row and Jacobi row differ bitwise")
 
-    # times at the main path's shapes (Qwen2.5-7B heads, bf16, page 256)
-    for name, (B, L, ctx) in {"decode": (4, 64, 1024), "prefill": (1, 1024, 1024)}.items():
-        c = make_case(B, L, 4, 7, 128, 256, ctx, torch.bfloat16, seed=2000, full=True)
+    # times at the main path's shapes (Qwen2.5-7B heads, bf16, page 256), with
+    # a bf16 cache and with an fp8 cache
+    times = {"decode": (4, 64, 1024, None), "prefill": (1, 1024, 1024, None),
+             "decode_fp8": (4, 64, 1024, "fp8"), "prefill_fp8": (1, 1024, 1024, "fp8")}
+    for name, (B, L, ctx, kv) in times.items():
+        c = make_case(B, L, 4, 7, 128, 256, ctx, torch.bfloat16, seed=2000, full=True, kv=kv)
         ms = time_ms(lambda: run_kernel(c))
         plain = time_ms(lambda: run_plain(c), iters=5)
         lib = sdpa_ms(c)
         bms, by = bound(c)
         err, worst, ok = check(run_kernel(c), run_plain(c), c["n_real"])
-        log(f"[kernel-time] {name} B={B} L={L} ctx={ctx} bf16 D=128 KH=4 G=7: kernel {ms:.4f} ms, "
+        log(f"[kernel-time] {name} B={B} L={L} ctx={ctx} bf16 queries, {kv or 'bf16'} KV, D=128 "
+            f"KH=4 G=7: kernel {ms:.4f} ms, "
             f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.5f} ms ({by}), "
             f"{bms / ms * 100:.2f}% of bound, max_abs_err {err:.3e} max err/tol {worst:.3f} "
             f"{'ok' if ok else 'FAIL'}")
@@ -292,15 +373,19 @@ def phase_kernel(timing):
 
 
 def make_spec_case(B, N, K, C, KH, G, D, page, ctx_max, dtype, seed, n_pad=0, mask="tree",
-                   full=False):
+                   full=False, kv=None):
     """Random inputs of the MR decoder's attention: T = (1+C+K-1)*N in-flight
     tokens per sequence over shuffled pages with ragged committed lengths from
     0 up to `ctx_max` (all `ctx_max` when `full`) and `n_pad` batch-bucket
     padding rows (all -1 table, length 1, all-false mask).  `mask`: "tree" is
     the decoder's mask (same-segment causal, pseudos see RA and earlier
     pseudos) with holes where segments are inactive or drafts short (none when
-    `full`); "random" lets each key through with probability 0.3."""
+    `full`); "random" lets each key through with probability 0.3.  With `kv`
+    ("fp8" / "int8") the committed cache is stored narrow with per-row scales
+    at magnitudes ~600 (queries scaled down by 600), and the in-flight block
+    is fake-quantized as `forward_spec` does it."""
     from jacobiforcing_tpu_torch.engine.multiblock import tree_mask
+    from jacobiforcing_tpu_torch.ops.kv_cache import dequantize_rows, quantize_rows
 
     r = np.random.RandomState(seed)
     S = 1 + C + (K - 1)
@@ -336,8 +421,15 @@ def make_spec_case(B, N, K, C, KH, G, D, page, ctx_max, dtype, seed, n_pad=0, ma
     dev = "cuda"
     f = lambda *shape: torch.from_numpy(r.randn(*shape).astype(np.float32)).to(dev, dtype)
     t = lambda a: torch.from_numpy(a).to(dev)
-    return dict(q=f(B, T, KH * G, D), k=f(KH, num_pages * page, D), v=f(KH, num_pages * page, D),
-                bt=t(bt), clen=t(clen), k_new=f(B, T, KH, D), v_new=f(B, T, KH, D),
+    q, k, v = f(B, T, KH * G, D), f(KH, num_pages * page, D), f(KH, num_pages * page, D)
+    k_new, v_new = f(B, T, KH, D), f(B, T, KH, D)
+    if kv is not None:
+        q = (q.float() / 600.0).to(dtype)
+        k_new = dequantize_rows(*quantize_rows(k_new.float() * 600.0, KV_KINDS[kv]), dtype)
+        v_new = dequantize_rows(*quantize_rows(v_new.float() * 600.0, KV_KINDS[kv]), dtype)
+    k, ks = narrow_cache(k, kv)
+    v, vs = narrow_cache(v, kv)
+    return dict(q=q, k=k, v=v, ks=ks, vs=vs, bt=t(bt), clen=t(clen), k_new=k_new, v_new=v_new,
                 mask=t(m), page=page, scale=1.0 / math.sqrt(D), n_real=n_real, N=N)
 
 
@@ -349,13 +441,15 @@ def spec_args(c):
 def run_spec_kernel(c):
     from jacobiforcing_tpu_torch.ops.spec_attention_cuda import spec_attention_cuda
 
-    return spec_attention_cuda(*spec_args(c), page_size=c["page"])
+    return spec_attention_cuda(*spec_args(c), page_size=c["page"], k_scale_l=c["ks"],
+                               v_scale_l=c["vs"])
 
 
 def run_spec_plain(c):
     from jacobiforcing_tpu_torch.ops.attention import paged_attention_with_block_ref
 
-    return paged_attention_with_block_ref(*spec_args(c), page_size=c["page"])
+    return paged_attention_with_block_ref(*spec_args(c), page_size=c["page"], k_scale_l=c["ks"],
+                                          v_scale_l=c["vs"])
 
 
 def spec_rows_to_check(c):
@@ -395,7 +489,9 @@ def spec_bound(c):
     it = q.element_size()
     n = c["n_real"]
     clen = c["clen"][:n].long()
-    nbytes = (2 * q.numel() * it + 2 * int(clen.sum()) * KH * D * it
+    # a narrow cache: one byte per element and a float32 scale per row and head
+    row_bytes = D * c["k"].element_size() + (4 if c["ks"] is not None else 0)
+    nbytes = (2 * q.numel() * it + 2 * int(clen.sum()) * KH * row_bytes
               + 2 * c["k_new"].numel() * it + c["mask"].numel() + c["bt"].numel() * 4
               + c["clen"].numel() * 4)
     visible = int(clen.sum()) * T + int(c["mask"][:n].sum())
@@ -406,13 +502,12 @@ def spec_bound(c):
 
 def spec_sdpa_ms(c):
     """One `scaled_dot_product_attention` call on the same function: dense
-    K/V, committed pages gathered beforehand and the in-flight block appended,
-    under one boolean mask (neither the gather nor the concatenation is timed)."""
-    from jacobiforcing_tpu_torch.ops.kv_cache import gather_pages
-
-    q, page = c["q"], c["page"]
-    kc = gather_pages(c["k"], c["bt"], page)  # [B, S, KH, D]
-    vc = gather_pages(c["v"], c["bt"], page)
+    K/V, committed pages gathered (a narrow cache dequantized) beforehand and
+    the in-flight block appended, under one boolean mask (none of that is
+    timed)."""
+    q = c["q"]
+    kc = dense_kv(c, "k")  # [B, S, KH, D]
+    vc = dense_kv(c, "v")
     S = kc.shape[1]
     k = torch.cat([kc, c["k_new"]], dim=1).permute(0, 2, 1, 3).contiguous()  # [B,KH,S+T,D]
     v = torch.cat([vc, c["v_new"]], dim=1).permute(0, 2, 1, 3).contiguous()
@@ -426,6 +521,46 @@ def spec_sdpa_ms(c):
 
 def bits(x):
     return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+
+
+def two_sources_check():
+    """The MR decoder sees a key twice: in flight, fake-quantized by
+    `forward_spec`, and later committed, dequantized inside the kernels.  Both
+    must be the same bits.  With the committed length a multiple of the key
+    tile (32) the two kernels walk the same keys in the same tiles, so the rows
+    of a speculative call over [committed | causal block] must equal, bit for
+    bit, the rows of a paged call after the block's rows were committed."""
+    from jacobiforcing_tpu_torch.ops.kv_cache import (
+        dequantize_rows, quantize_rows, write_kv_scaled)
+
+    N, clen, page, KH, G, D = 32, 256, 16, 2, 2, 64
+    for kv, store in KV_KINDS.items():
+        for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            c = make_spec_case(2, N, 1, 0, KH, G, D, page, clen, dtype, seed=6500, full=True, kv=kv)
+            r = np.random.RandomState(6501)
+            raw_k = torch.from_numpy(r.randn(2, N, KH, D).astype(np.float32) * 600).to("cuda", dtype)
+            raw_v = torch.from_numpy(r.randn(2, N, KH, D).astype(np.float32) * 600).to("cuda", dtype)
+            c["k_new"] = dequantize_rows(*quantize_rows(raw_k, store), dtype)
+            c["v_new"] = dequantize_rows(*quantize_rows(raw_v, store), dtype)
+            c["mask"] = torch.tril(torch.ones(N, N, dtype=torch.bool, device="cuda"))[None] \
+                .expand(2, N, N).contiguous()
+            spec = run_spec_kernel(c)
+            # commit the block's rows behind the committed keys, onto fresh pages
+            free = [p for p in range(c["k"].shape[1] // page) if p not in set(c["bt"].flatten().tolist())]
+            bt = torch.cat([c["bt"][:, : clen // page],
+                            torch.tensor([free[:2], free[2:4]], dtype=torch.int32, device="cuda")], 1)
+            pos = clen + torch.arange(N, dtype=torch.int32, device="cuda")[None].expand(2, N)
+            slots = torch.gather(bt.long(), 1, (pos // page).long()) * page + pos % page
+            write_kv_scaled(c["k"], c["v"], c["ks"], c["vs"], raw_k, raw_v, slots)
+            paged = run_kernel(dict(c, bt=bt.contiguous(), pos=pos.contiguous(),
+                                    clen=torch.full((2,), clen + N, dtype=torch.int32,
+                                                    device="cuda")))
+            diffs = int((bits(spec) != bits(paged)).any(-1).any(-1).sum())
+            log(f"[spec-kernel] bitwise {kv} KV {dname}: rows over [committed | in-flight "
+                f"fake-quantized block] == rows after the block is committed, {2 * N} rows, "
+                f"{diffs} differ {'ok' if diffs == 0 else 'FAIL'}")
+            if diffs:
+                raise AssertionError("an in-flight fake-quantized key and its committed copy differ")
 
 
 def phase_spec_kernel(timing):
@@ -458,13 +593,38 @@ def phase_spec_kernel(timing):
                                 raise AssertionError(
                                     f"spec kernel disagrees with the plain version: {tag}")
 
+    # the same on a narrow committed cache with per-row scales (fp8 e4m3, int8)
+    for kv in KV_KINDS:
+        for dname, dtype in dtypes.items():
+            for sname, KH, G, D, page in shapes:
+                for B, N in ((1, 64), (8, 32)):
+                    for tname, K, C in tiers:
+                        ctx = 4096 if B <= 4 else 2048
+                        c = make_spec_case(B, N, K, C, KH, G, D, page, ctx, dtype, seed=3000 + n,
+                                           n_pad=(1 if B >= 4 else 0), kv=kv)
+                        n += 1
+                        out = run_spec_kernel(c)
+                        torch.cuda.synchronize()
+                        finite = bool(torch.isfinite(out).all())
+                        keep = spec_rows_to_check(c)
+                        err, worst, ok = check(out[keep], run_spec_plain(c)[keep])
+                        ok = ok and finite
+                        tag = (f"{kv} KV {dname} {sname} B={B} N={N} T={tname} tree mask "
+                               f"ctx<={ctx} ({int(keep.sum())} rows)")
+                        log(f"[spec-kernel] {tag}: max_abs_err={err:.3e} max err/tol={worst:.3f} "
+                            f"finite={finite} {'ok' if ok else 'FAIL'}")
+                        if not ok:
+                            raise AssertionError(
+                                f"spec kernel disagrees with the plain version: {tag}")
+
     # bitwise: RA rows of a T=6N call == the rows of a T=N call on the same
     # sequence (the batch-global tier choice must not change a row's bits), and
     # a row of a B=8 call == the same row at B=1
-    for dname, dtype in dtypes.items():
+    for kv, (dname, dtype) in [(kv, d) for kv in (None, *KV_KINDS) for d in dtypes.items()]:
         for sname, KH, G, D, page in shapes:
             for N in (32, 64):
-                c = make_spec_case(8, N, 2, 4, KH, G, D, page, 2048, dtype, seed=5000 + N, n_pad=1)
+                c = make_spec_case(8, N, 2, 4, KH, G, D, page, 2048, dtype, seed=5000 + N, n_pad=1,
+                                   kv=kv)
                 big = run_spec_kernel(c)
                 ra = run_spec_kernel(spec_slice(c, T=N))
                 tier_diffs = int((bits(big[:, :N]) != bits(ra)).any(-1).any(-1).sum())
@@ -473,22 +633,30 @@ def phase_spec_kernel(timing):
                     solo = run_spec_kernel(spec_slice(c, b=b))
                     batch_diffs += int((bits(solo[0]) != bits(big[b])).any(-1).any(-1).sum())
                 ok = tier_diffs == 0 and batch_diffs == 0
-                log(f"[spec-kernel] bitwise {dname} {sname} N={N}: RA rows of T=6N vs T=N, "
+                log(f"[spec-kernel] bitwise {dname} {sname} {kv or 'same-type'} KV N={N}: RA rows "
+                    f"of T=6N vs T=N, "
                     f"{8 * N} rows, {tier_diffs} differ; rows of B=8 vs B=1, {3 * 6 * N} rows, "
                     f"{batch_diffs} differ {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError("spec kernel rows depend on the tier or the batch")
 
-    # times at the MR path's shapes (Qwen2.5-7B heads, bf16, page 256, B=4, ctx 1024, N=64)
-    for name, (K, C) in {"T64": (1, 0), "T128": (2, 0), "T384": (2, 4)}.items():
-        c = make_spec_case(4, 64, K, C, 4, 7, 128, 256, 1024, torch.bfloat16, seed=6000, full=True)
+    two_sources_check()
+
+    # times at the MR path's shapes (Qwen2.5-7B heads, bf16, page 256, B=4, ctx 1024, N=64),
+    # with a bf16 cache and with an fp8 cache
+    times = {f"{name}{'_fp8' if kv else ''}": (K, C, kv) for kv in (None, "fp8")
+             for name, (K, C) in {"T64": (1, 0), "T128": (2, 0), "T384": (2, 4)}.items()}
+    for name, (K, C, kv) in times.items():
+        c = make_spec_case(4, 64, K, C, 4, 7, 128, 256, 1024, torch.bfloat16, seed=6000, full=True,
+                           kv=kv)
         T = c["q"].shape[1]
         ms = time_ms(lambda: run_spec_kernel(c))
         plain = time_ms(lambda: run_spec_plain(c), iters=5)
         lib = spec_sdpa_ms(c)
         bms, by = spec_bound(c)
         err, worst, ok = check(run_spec_kernel(c), run_spec_plain(c))
-        log(f"[spec-kernel-time] T={T} B=4 ctx=1024 bf16 D=128 KH=4 G=7: kernel {ms:.4f} ms, "
+        log(f"[spec-kernel-time] T={T} B=4 ctx=1024 bf16 queries, {kv or 'bf16'} KV, D=128 KH=4 "
+            f"G=7: kernel {ms:.4f} ms, "
             f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.5f} ms ({by}), "
             f"{bms / ms * 100:.2f}% of bound, max_abs_err {err:.3e} max err/tol {worst:.3f} "
             f"{'ok' if ok else 'FAIL'}")
@@ -496,6 +664,157 @@ def phase_spec_kernel(timing):
             raise AssertionError(f"spec kernel disagrees with the plain version at T={T}")
         timing[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
                             max_abs_err=err)
+
+
+# ---------------------------------------------------------------------------
+# Phase `kernel`, the int4 dequant-matmul kernel
+# ---------------------------------------------------------------------------
+
+# the linear layers of Qwen2.5-7B as (K, N): wq/wo, wk/wv, gate/up, down
+INT4_SHAPES = {"qo": (3584, 3584), "kv": (3584, 512), "gateup": (3584, 18944),
+               "down": (18944, 3584)}
+INT4_ROWS = (4, 256, 1536)  # AR decode (B=4), a Jacobi block (B*L), the MR full tier (B*T)
+
+
+def make_int4_case(M, K, N, dtype, seed):
+    from jacobiforcing_tpu_torch.ops.int4_matmul import pack_int4
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    wq = torch.randint(-8, 8, (K, N), generator=g, device="cuda", dtype=torch.int8)
+    scale = torch.randn(N, generator=g, device="cuda").abs() * 0.01
+    x = torch.randn(M, K, generator=g, device="cuda").to(dtype)
+    return dict(x=x, wq=wq, wp=pack_int4(wq), scale=scale)
+
+
+def check_int4(out, ref):
+    """(max_abs_err, worst err/tol, ok) against the plain version run in
+    float32 on the same (rounded) inputs.  f32: |err| <= 1e-5 * max|ref| (the
+    sums are taken in another order).  bf16: per element |err| <= 2^-7 * |ref|
+    + 1e-5 * max|ref|: the output is rounded to bf16 once, and a sum that lies
+    near a rounding boundary may land on the neighbouring value (one ulp)."""
+    bf16 = out.dtype == torch.bfloat16
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    tol = torch.full_like(ref, 1e-5 * ref.abs().max().item())
+    if bf16:
+        tol = tol + ref.abs() * 2.0**-7
+    worst = (err / tol).max().item()
+    return err.max().item(), worst, bool(torch.isfinite(out).all()) and worst <= 1.0
+
+
+def int4_bound(M, K, N, dtype):
+    """(bound_ms, bound_by): the packed weight, x and the scales read once, y
+    written once; 2*M*K*N operations at the tensor cores' rate for x's type."""
+    e = torch.empty((), dtype=dtype).element_size()
+    t_bytes = (K * N // 2 + M * K * e + M * N * e + N * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * M * K * N / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_int4_kernel(timing):
+    from jacobiforcing_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_ref
+
+    # against the plain version: the JAX test's shape, ragged M and K, the 7B shapes
+    shapes = [(16, 256, 1024), (3, 100, 96), (70, 37, 160)]
+    shapes += [(M, K, N) for K, N in INT4_SHAPES.values() for M in INT4_ROWS]
+    for n, (M, K, N) in enumerate(shapes):
+        for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            c = make_int4_case(M, K, N, dtype, seed=9000 + n)
+            out = int4_matmul(c["x"], c["wp"], c["scale"])
+            torch.cuda.synchronize()
+            err, worst, ok = check_int4(out, int4_matmul_ref(c["x"].float(), c["wp"], c["scale"]))
+            log(f"[int4-kernel] {dname} M={M} K={K} N={N}: max_abs_err={err:.3e} "
+                f"max err/tol={worst:.3f} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"int4 kernel disagrees with the plain version: M={M} K={K} N={N}")
+    # a row's bits do not depend on how many rows come with it
+    c = make_int4_case(1536, 3584, 512, torch.bfloat16, seed=9100)
+    full = int4_matmul(c["x"], c["wp"], c["scale"])
+    few = int4_matmul(c["x"][700:704].contiguous(), c["wp"], c["scale"])
+    same = torch.equal(bits(full[700:704]), bits(few))
+    log(f"[int4-kernel] bitwise rows 700..703 of M=1536 == the same rows at M=4: {same} "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("int4 kernel rows depend on M")
+
+    # times (bf16) beside the bound, the plain version and, for orientation, one
+    # GEMM on the pre-dequantized bf16 weight (which reads 4x the weight bytes;
+    # no single PyTorch call computes this function from the packed layout)
+    for sname, (K, N) in INT4_SHAPES.items():
+        for M in INT4_ROWS:
+            c = make_int4_case(M, K, N, torch.bfloat16, seed=9200)
+            x, wp, scale = c["x"], c["wp"], c["scale"]
+            ms = time_ms(lambda: int4_matmul(x, wp, scale), iters=10)
+            plain = time_ms(lambda: int4_matmul_ref(x, wp, scale), iters=3)
+            w_bf16 = c["wq"].to(torch.bfloat16)
+            dense = time_ms(lambda: x @ w_bf16, iters=10)
+            bms, by = int4_bound(M, K, N, torch.bfloat16)
+            err, worst, ok = check_int4(int4_matmul(x, wp, scale),
+                                        int4_matmul_ref(x.float(), wp, scale))
+            log(f"[int4-kernel-time] {sname} M={M} K={K} N={N} bf16: kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, x @ W_bf16 on the pre-dequantized weight (4x the weight bytes) "
+                f"{dense:.4f} ms, bound {bms:.5f} ms ({by}), {bms / ms * 100:.2f}% of bound, "
+                f"{2 * M * K * N / ms / 1e9:.1f} TFLOP/s, max err/tol {worst:.3f} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"int4 kernel disagrees at the timed shape {sname} M={M}")
+            timing[f"int4_{sname}_M{M}"] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                                                bound_ms=bms, bound_by=by, max_abs_err=err)
+
+
+def phase_int8_gemm():
+    """Orientation for `ops/quant.mm` (library products, no kernel of this
+    repository): the int8 x int8 product `torch._int_mm` on a row-major and on
+    a column-major weight (the engine re-lays W8A8 weights column-major,
+    `ops/quant.int_mm_layout`), the bf16 GEMM, and the int8 -> bf16 cast that
+    the weight-only path pays per call, at the gate/up shape."""
+    K, N = INT4_SHAPES["gateup"]
+    g = torch.Generator(device="cuda").manual_seed(9400)
+    w_row = torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+    w_col = w_row.t().contiguous().t()
+    w_bf16 = w_row.to(torch.bfloat16)
+    cast = time_ms(lambda: w_row.to(torch.bfloat16), iters=10)
+    for M in (32, 256, 1536):
+        a = torch.randint(-127, 128, (M, K), generator=g, device="cuda", dtype=torch.int8)
+        same = torch.equal(torch._int_mm(a, w_row), torch._int_mm(a, w_col))
+        exact = torch.equal(torch._int_mm(a[:8].repeat(4, 1), w_col)[:8].double(),
+                            a[:8].double() @ w_row.double())
+        row = time_ms(lambda: torch._int_mm(a, w_row), iters=10)
+        col = time_ms(lambda: torch._int_mm(a, w_col), iters=10)
+        x = a.to(torch.bfloat16)
+        dense = time_ms(lambda: x @ w_bf16, iters=10)
+        log(f"[int8-gemm] M={M} K={K} N={N}: torch._int_mm row-major weight {row:.4f} ms, "
+            f"column-major {col:.4f} ms, bf16 GEMM {dense:.4f} ms, int8 -> bf16 cast of the "
+            f"weight {cast:.4f} ms; layouts agree: {same}, sums exact: {exact}")
+        if not (same and exact):
+            raise AssertionError("torch._int_mm is not exact on this card")
+
+
+def phase_int4_path(launches_out):
+    """The int4 building block is wired into no server (as in the JAX
+    package), so its path is this: the seven linear layers of one Qwen2.5-7B
+    decoder layer for a Jacobi block (M = 4 * 64 rows, bf16) through the
+    dispatcher `int4_matmul`, launches counted from zero, each output finite
+    and equal to the plain version's."""
+    from jacobiforcing_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_ref
+    from jacobiforcing_tpu_torch.ops.int4_matmul_cuda import int4_matmul_cuda
+
+    layers = ["qo", "kv", "kv", "qo", "gateup", "gateup", "down"]  # wq wk wv wo gate up down
+    int4_matmul_cuda.launches = 0
+    worst_all = 0.0
+    for i, sname in enumerate(layers):
+        K, N = INT4_SHAPES[sname]
+        c = make_int4_case(256, K, N, torch.bfloat16, seed=9300 + i)
+        out = int4_matmul(c["x"], c["wp"], c["scale"])
+        _, worst, ok = check_int4(out, int4_matmul_ref(c["x"].float(), c["wp"], c["scale"]))
+        worst_all = max(worst_all, worst)
+        if not ok or tuple(out.shape) != (256, N):
+            raise AssertionError(f"int4 path: layer {i} ({sname}) is wrong")
+    launches_out["int4_path"] = {"int4_matmul": int4_matmul_cuda.launches}
+    log(f"[int4-path] one decoder layer's 7 linear layers at M=256, bf16: "
+        f"{int4_matmul_cuda.launches} launches, worst err/tol {worst_all:.3f} ok")
+    if int4_matmul_cuda.launches != len(layers):
+        raise AssertionError("the int4 path did not launch the kernel once per layer")
 
 
 # ---------------------------------------------------------------------------
@@ -731,10 +1050,12 @@ class PlainOnCudaCounter:
 
 def _wrappers():
     from jacobiforcing_tpu_torch.ops import train_attention_cuda as tac
+    from jacobiforcing_tpu_torch.ops.int4_matmul_cuda import int4_matmul_cuda
     from jacobiforcing_tpu_torch.ops.paged_attention_cuda import paged_attention_cuda
     from jacobiforcing_tpu_torch.ops.spec_attention_cuda import spec_attention_cuda
 
     return {"paged_attention": paged_attention_cuda, "spec_attention": spec_attention_cuda,
+            "int4_matmul": int4_matmul_cuda,
             "train_attention_fwd": tac.train_attention_fwd_cuda,
             "train_attention_dkdv": tac.train_attention_dkdv_cuda,
             "train_attention_dq": tac.train_attention_dq_cuda}
@@ -753,17 +1074,22 @@ def read_counts():
 MR_STATS = ("mr_full", "mr_nocand", "mr_ra_only", "mr_single")
 
 
+def demo_llm(meta, **kw):
+    from jacobiforcing_tpu_torch.engine.llm import LLM
+
+    return LLM(model=DEMO, device="cuda", dtype=torch.float32, kvcache_page_size=16,
+               max_model_len=512, jacobi_chunk_tokens=64, eos=int(meta["eos"]),
+               prefill_token_buckets=(32, 64, 128, 256, 512), num_kv_pages=1024, **kw)
+
+
 def phase_demo(counter, launches_out):
     from jacobiforcing_tpu_torch.apps import bench_generate
-    from jacobiforcing_tpu_torch.engine.llm import LLM
 
     with open(os.path.join(DEMO, "tpf_demo.json")) as f:
         meta = json.load(f)
 
     def make_llm(**kw):
-        return LLM(model=DEMO, device="cuda", dtype=torch.float32, kvcache_page_size=16,
-                   max_model_len=512, jacobi_chunk_tokens=64, eos=int(meta["eos"]),
-                   prefill_token_buckets=(32, 64, 128, 256, 512), num_kv_pages=1024, **kw)
+        return demo_llm(meta, **kw)
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_demo_", dir=os.path.join(REPO, "build"))
     streams, faults = {}, []
@@ -828,8 +1154,185 @@ def phase_demo(counter, launches_out):
         raise AssertionError("demo checkpoint: " + "; ".join(faults))
 
 
-def phase_full_width(counter, launches_out):
+# The JAX package's runs of the quantized demo engines in f32 on the CPU
+# (`python -m tests.torch_quant_demo_anchors`): greedy Jacobi, N=32, all 64
+# held-out prompts -> (tokens, EOS); and tokens per prompt of the first 16.
+_LENS16 = [18, 43, 23, 21, 25, 51, 39, 19, 28, 53, 22, 17, 25, 17, 20, 31]
+DEMO_QUANT_ANCHORS = {
+    "int8": dict(kw=dict(quantization="int8"), tokens=2015, eos=64, first16=_LENS16),
+    "w8a8": dict(kw=dict(quantization="w8a8"), tokens=2029, eos=64, first16=_LENS16),
+    "fp8": dict(kw=dict(kv_cache_dtype="fp8"), tokens=2026, eos=64,
+                first16=[18, 43, 23, 21, 25, 51, 39, 19, 28, 53, 20, 17, 19, 17, 20, 31]),
+    "int8kv": dict(kw=dict(kv_cache_dtype="int8"), tokens=2033, eos=64, first16=_LENS16),
+}
+
+
+def phase_demo_quant(counter, launches_out):
+    """The demo checkpoint in f32 served quantized: int8 and W8A8 weights, an
+    fp8 and an int8 KV cache (four engines).  Inside each: greedy Jacobi on
+    all 64 held-out prompts, `ar` and `mr` (K=2, pool 4, policy off) on the
+    first 16; the three streams must be identical token for token (gate).
+    Tokens, EOS count and TPF are printed beside the JAX package's CPU run of
+    the same configuration; a count that differs is reported with the first
+    prompt whose length differs."""
     from jacobiforcing_tpu_torch.config import SamplingParams
+
+    with open(os.path.join(DEMO, "tpf_demo.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(DEMO, "heldout_prompts.jsonl")) as f:
+        prompts = [json.loads(line)["prompt_ids"] for line in f]
+    n, block, eos_id = int(meta["max_tokens"]), int(meta["block_len"]), int(meta["eos"])
+
+    def sp(strategy, blocks=1):
+        return SamplingParams(temperature=0.0, max_tokens=n, decode_strategy=strategy,
+                              jacobi_block_len=block, jacobi_max_blocks=blocks,
+                              jacobi_n_gram_pool_size=4, jacobi_max_iterations=1 << 20)
+
+    faults = []
+    for name, anchor in DEMO_QUANT_ANCHORS.items():
+        llm = demo_llm(meta, jacobi_mr_auto_policy=False, **anchor["kw"])
+        eng = llm.engine
+        runs = {}
+        for run, strategy, blocks, k in (("jacobi", "jacobi", 1, 64), ("ar", "autoregressive", 1, 16),
+                                         ("mr", MR, 2, 16)):
+            stats0 = dict(eng.stats)
+            zero_counts(counter)
+            t0 = time.perf_counter()
+            # one request at a time, as bench_generate serves them
+            outs = [eng.generate([p], sp(strategy, blocks))[0]["token_ids"] for p in prompts[:k]]
+            dt = time.perf_counter() - t0
+            launches = launches_out[f"demo_{name}_{run}"] = read_counts()
+            iters = eng.stats["jacobi_iterations"] - stats0["jacobi_iterations"]
+            runs[run] = outs
+            toks = sum(len(o) for o in outs)
+            n_eos = sum(bool(o) and o[-1] == eos_id for o in outs)
+            line = (f"[demo-quant] {name} {run}: {k} prompts, total_tokens={toks} eos={n_eos}/{k} "
+                    f"wall={dt:.2f}s; kernel launches "
+                    f"{ {key: v for key, v in launches.items() if v} }; plain attention calls on "
+                    f"CUDA: {counter.n}")
+            if run != "ar":
+                line += f"; {iters} iterations, aggregate_tpf={toks / max(iters, 1):.4f}"
+            if run == "mr":
+                line += f"; tiers { {t: eng.stats.get(t, 0) - stats0.get(t, 0) for t in MR_STATS[:3]} }"
+            if run == "jacobi":
+                same = (toks, n_eos) == (anchor["tokens"], anchor["eos"])
+                line += (f"; the JAX package on the CPU: {anchor['tokens']} tokens, "
+                         f"{anchor['eos']}/64 EOS: {'equal' if same else 'DIFFERS'}")
+                if not same:
+                    lens = [len(o) for o in outs[:16]]
+                    first = next((i for i, (a, b) in enumerate(zip(lens, anchor["first16"]))
+                                  if a != b), None)
+                    line += (f" (first prompt of the first 16 whose length differs: {first}; "
+                             f"lengths {lens} against {anchor['first16']})")
+            log(line)
+            if launches["paged_attention"] <= 0 or counter.n:
+                faults.append(f"{name} {run} did not go through the kernels alone")
+            if (run == "mr") != (launches["spec_attention"] > 0):
+                faults.append(f"{name} {run}: {launches['spec_attention']} speculative launches")
+        for other in ("ar", "mr"):
+            diff = [i for i, (a, b) in enumerate(zip(runs["jacobi"], runs[other])) if a != b]
+            log(f"[demo-quant] {name}: jacobi == {other} on {len(runs[other])} prompts: {not diff} "
+                f"(rows differing: {diff})")
+            if diff:
+                faults.append(f"{name}: jacobi and {other} streams differ in rows {diff}")
+        assert eng.kv.scaled == ("kv_cache_dtype" in anchor["kw"])
+        llm.exit()
+    if faults:
+        raise AssertionError("quantized demo engines: " + "; ".join(faults))
+
+
+def full_width_sps():
+    from jacobiforcing_tpu_torch.config import SamplingParams
+
+    return {
+        "autoregressive": SamplingParams(temperature=0.0, max_tokens=128),
+        "jacobi": SamplingParams(temperature=0.0, max_tokens=128, decode_strategy="jacobi",
+                                 jacobi_block_len=64, jacobi_max_iterations=1 << 20),
+        "mr": SamplingParams(temperature=0.0, max_tokens=128, decode_strategy=MR,
+                             jacobi_block_len=64, jacobi_max_blocks=2,
+                             jacobi_n_gram_pool_size=4, jacobi_max_iterations=1 << 20),
+    }
+
+
+def serve_paths(tag, llm, prompts, sps, counter, shape_out):
+    """Drive one full-width engine: prefill alone (one token each, timed apart
+    from decode; the prefix cache then holds the prompts' full pages for every
+    strategy), then each strategy of `sps`.  Every kernel's launch count is
+    zeroed before each path and read after it.  Returns (streams, launches,
+    plain attention calls on CUDA) by path and fails if a path did not run
+    through the kernels alone or a request came up short."""
+    from jacobiforcing_tpu_torch.config import SamplingParams
+
+    streams, launches, plain_on_cuda = {}, {}, {}
+    zero_counts(counter)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    llm.generate(prompts, SamplingParams(temperature=0.0, max_tokens=1))
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches["prefill"], plain_on_cuda["prefill"] = read_counts(), counter.n
+    log(f"[{tag}] prefill of 4 prompts (2560 tokens, cold) {prefill_ms:.1f} ms; kernel launches "
+        f"{launches['prefill']}; plain attention calls on CUDA: {counter.n}")
+    for strategy, sp in sps.items():
+        stats0 = dict(llm.stats)
+        zero_counts(counter)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = llm.generate(prompts, sp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[strategy], plain_on_cuda[strategy] = read_counts(), counter.n
+        streams[strategy] = [o["token_ids"] for o in outs]
+        toks = sum(len(s) for s in streams[strategy])
+        delta = {k: llm.stats.get(k, 0) - stats0.get(k, 0) for k in llm.stats}
+        iters, fwds, steps = delta["jacobi_iterations"], delta["chunk_forwards"], delta["ar_steps"]
+        line = (f"[{tag}] {strategy}: {toks} tokens in {wall:.3f}s = {toks / wall:.2f} tok/s "
+                f"(prompts' full pages prefix-cached; the rest prefilled in the wall)")
+        if strategy == "autoregressive":
+            line += f"; {steps} AR steps = {steps / wall:.2f} steps/s"
+        else:
+            line += (f"; {iters} row-iterations, {fwds} batched forwards = "
+                     f"{fwds / wall:.2f} iterations/s, TPF {toks / max(iters, 1):.3f}")
+        if strategy == "mr":
+            # a random model's n-gram pool seldom hits, so mr_full may be 0
+            # here; the kernel phase and the demo checkpoint cover that shape
+            tiers = {k: delta.get(k, 0) for k in MR_STATS[:3]}
+            line += f"; tiers {tiers}"
+            # the timed shape that stands for this path: its most frequent tier
+            shape_out["mr_main_shape"] = {
+                "mr_ra_only": "T64", "mr_nocand": "T128", "mr_full": "T384",
+            }[max(tiers, key=tiers.get)]
+        log(line + f"; kernel launches {launches[strategy]}; plain attention calls on CUDA: "
+            f"{counter.n}")
+    for other in [name for name in ("jacobi", "mr") if name in sps and "autoregressive" in sps]:
+        pairs = list(zip(streams["autoregressive"], streams[other]))
+        match = [sum(x == y for x, y in zip(a[:128], b[:128])) / max(min(len(a), len(b), 128), 1)
+                 for a, b in pairs]
+        first_diff = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+                      for a, b in pairs]
+        log(f"[{tag}] AR vs {other} first-128-token match rate per request: "
+            f"{[round(m, 4) for m in match]} (first differing index {first_diff}); bf16 "
+            f"near-ties on a random model make this a reported number, not a gate")
+    log(f"[{tag}] peak torch.cuda.max_memory_allocated = "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    lens_ok = all(len(s) == 128 for v in streams.values() for s in v)
+    missed = [p for p in launches if launches[p]["paged_attention"] <= 0 or plain_on_cuda[p]]
+    if "mr" in sps and launches["mr"]["spec_attention"] <= 0:
+        missed.append("mr (speculative kernel)")
+    if any(launches[p]["spec_attention"] for p in launches if p != "mr"):
+        missed.append("a non-MR path launched the speculative kernel")
+    if missed or not lens_ok:
+        raise AssertionError(f"{tag}: paths {missed} did not run through the kernels alone, "
+                             f"or a request came up short of 128 tokens ({lens_ok=})")
+    return streams, launches, plain_on_cuda
+
+
+def full_width_prompts(cfg):
+    r = np.random.RandomState(0)
+    return [r.randint(0, cfg.vocab_size, size=n).tolist() for n in (256, 512, 768, 1024)]
+
+
+def phase_full_width(counter, launches_out):
     from jacobiforcing_tpu_torch.engine.llm import LLM
     from jacobiforcing_tpu_torch.models.qwen import ModelConfig, init_params
 
@@ -846,97 +1349,80 @@ def phase_full_width(counter, launches_out):
     # goes through the speculative kernel; the option touches no other strategy
     llm = LLM(device="cuda", model_cfg=cfg, params=params, num_kv_pages=512,
               kvcache_page_size=256, eos=-1, jacobi_mr_auto_policy=False)
-    r = np.random.RandomState(0)
-    prompts = [r.randint(0, cfg.vocab_size, size=n).tolist() for n in (256, 512, 768, 1024)]
-    streams, launches, plain_on_cuda = {}, {}, {}
-    # prefill alone first (one token each), to time it apart from decode; the
-    # prefix cache then holds the prompts' full pages for every strategy
-    zero_counts(counter)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    llm.generate(prompts, SamplingParams(temperature=0.0, max_tokens=1))
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t0) * 1e3
-    launches["prefill"], plain_on_cuda["prefill"] = read_counts(), counter.n
-    log(f"[full] prefill of 4 prompts (2560 tokens, cold) {prefill_ms:.1f} ms; kernel launches "
-        f"{launches['prefill']}; plain attention calls on CUDA: {counter.n}")
-    sps = {
-        "autoregressive": SamplingParams(temperature=0.0, max_tokens=128),
-        "jacobi": SamplingParams(temperature=0.0, max_tokens=128, decode_strategy="jacobi",
-                                 jacobi_block_len=64, jacobi_max_iterations=1 << 20),
-        "mr": SamplingParams(temperature=0.0, max_tokens=128, decode_strategy=MR,
-                             jacobi_block_len=64, jacobi_max_blocks=2,
-                             jacobi_n_gram_pool_size=4, jacobi_max_iterations=1 << 20),
-    }
-    for strategy, sp in sps.items():
-        stats0 = dict(llm.stats)
-        zero_counts(counter)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs = llm.generate(prompts, sp)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches[strategy], plain_on_cuda[strategy] = read_counts(), counter.n
-        streams[strategy] = [o["token_ids"] for o in outs]
-        toks = sum(len(s) for s in streams[strategy])
-        delta = {k: llm.stats.get(k, 0) - stats0.get(k, 0) for k in llm.stats}
-        iters, fwds, steps = delta["jacobi_iterations"], delta["chunk_forwards"], delta["ar_steps"]
-        line = (f"[full] {strategy}: {toks} tokens in {wall:.3f}s = {toks / wall:.2f} tok/s "
-                f"(prompts' full pages prefix-cached; the rest prefilled in the wall)")
-        if strategy == "autoregressive":
-            line += f"; {steps} AR steps = {steps / wall:.2f} steps/s"
-        else:
-            line += (f"; {iters} row-iterations, {fwds} batched forwards = "
-                     f"{fwds / wall:.2f} iterations/s, TPF {toks / max(iters, 1):.3f}")
-        if strategy == "mr":
-            # a random model's n-gram pool seldom hits, so mr_full may be 0
-            # here; the kernel phase and the demo checkpoint cover that shape
-            tiers = {k: delta.get(k, 0) for k in MR_STATS[:3]}
-            line += f"; tiers {tiers}"
-            # the timed shape that stands for this path: its most frequent tier
-            launches_out["mr_main_shape"] = {
-                "mr_ra_only": "T64", "mr_nocand": "T128", "mr_full": "T384",
-            }[max(tiers, key=tiers.get)]
-        log(line + f"; kernel launches {launches[strategy]}; plain attention calls on CUDA: "
-            f"{counter.n}")
-    for other in ("jacobi", "mr"):
-        pairs = list(zip(streams["autoregressive"], streams[other]))
-        match = [sum(x == y for x, y in zip(a[:128], b[:128])) / max(min(len(a), len(b), 128), 1)
-                 for a, b in pairs]
-        first_diff = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
-                      for a, b in pairs]
-        log(f"[full] AR vs {other} first-128-token match rate per request: "
-            f"{[round(m, 4) for m in match]} (first differing index {first_diff}); bf16 "
-            f"near-ties on a random model make this a reported number, not a gate")
-    log(f"[full] peak torch.cuda.max_memory_allocated = "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    lens_ok = all(len(s) == 128 for v in streams.values() for s in v)
+    prompts = full_width_prompts(cfg)
+    sps = full_width_sps()
+    _, launches, _ = serve_paths("full", llm, prompts, sps, counter, launches_out)
     for name in ("jacobi", "mr"):
         profile_decode(llm, prompts, name, sps[name])
     llm.exit()
     del llm  # the KV pool goes; the weights stay for the `train` phase
-    missed = [p for p in launches if launches[p]["paged_attention"] <= 0 or plain_on_cuda[p]]
-    if launches["mr"]["spec_attention"] <= 0:
-        missed.append("mr (speculative kernel)")
-    if any(launches[p]["spec_attention"] for p in ("prefill", "autoregressive", "jacobi")):
-        missed.append("a non-MR path launched the speculative kernel")
-    if missed or not lens_ok:
-        raise AssertionError(f"full width: paths {missed} did not run through the kernels alone, "
-                             f"or a request came up short of 128 tokens ({lens_ok=})")
     launches_out.update(launches)
     return params
 
 
-def profile_decode(llm, prompts, name, sp):
+def phase_full_quant(counter, launches_out):
+    """Qwen2.5-7B widths served quantized: int8 weights from
+    `init_quantized_params` (seed 0); W8A8 with an fp8 KV cache under `ar`,
+    `jacobi` and `mr`, then weight-only int8 with an int8 KV cache under
+    `jacobi`.  The launches of each path are kept under `w8a8_fp8_<path>` and
+    `int8_int8_<path>`.  Everything is freed at the end."""
+    from jacobiforcing_tpu_torch.engine.llm import LLM
+    from jacobiforcing_tpu_torch.models.qwen import ModelConfig
+    from jacobiforcing_tpu_torch.ops.quant import init_quantized_params
+
+    cfg = ModelConfig()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    params = init_quantized_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                   device="cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for _, t in param_items(params))
+    log(f"[full-quant] Qwen2.5-7B widths: random int8 weights with bf16 scales, "
+        f"{nbytes / 2**30:.2f} GiB, in {time.perf_counter() - t0:.1f}s ({held:.2f} GiB held by "
+        f"earlier phases)")
+    prompts = full_width_prompts(cfg)
+    sps = full_width_sps()
+    engines = [("w8a8_fp8", dict(quantization="w8a8", kv_cache_dtype="fp8"), sps),
+               ("int8_int8", dict(quantization="int8", kv_cache_dtype="int8"),
+                {"jacobi": sps["jacobi"]})]
+    for tag, kw, paths in engines:
+        llm = LLM(device="cuda", model_cfg=cfg, params=params, num_kv_pages=512,
+                  kvcache_page_size=256, eos=-1, jacobi_mr_auto_policy=False, **kw)
+        kvc = llm.engine.kv
+        pool = sum(t.numel() * t.element_size() for t in (kvc.k, kvc.v, kvc.k_scale, kvc.v_scale))
+        log(f"[full-quant] {tag}: KV pool of 512 pages x 256 slots stored as {kvc.k.dtype} with "
+            f"float32 row scales, {pool / 2**30:.2f} GiB; act_quant={llm.engine.model_cfg.act_quant}")
+        shapes = {}
+        _, launches, _ = serve_paths(f"full-quant {tag}", llm, prompts, paths, counter, shapes)
+        for path, counts in launches.items():
+            launches_out[f"{tag}_{path}"] = counts
+        launches_out.update({f"{tag}_{k}": v for k, v in shapes.items()})
+        for name in paths:
+            if name != "autoregressive":
+                profile_decode(llm, prompts, name, paths[name], tag=f"{tag} ")
+        llm.exit()
+        del llm, kvc
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def profile_decode(llm, prompts, name, sp, tag=""):
     """Where the device time of serving one strategy goes: torch.profiler over
-    4 requests (prefill + 32 new tokens each, block 64), device kernel time
-    summed by kernel name, and the device's busy share of the wall."""
+    4 requests (prefill + 12 new tokens each, block 64; the trace of a longer
+    run takes the profiler minutes to digest), device kernel time
+    summed by kernel name (the attention kernels, int8 GEMMs, other GEMMs,
+    copies and dtype casts, the rest), and the device's busy share of the
+    wall."""
     from dataclasses import replace
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    sp = replace(sp, max_tokens=32)
+    sp = replace(sp, max_tokens=12)
     # prompts that are not prefix-cached, and not shared between the strategies
     prompts = [p[::-1] if name == "jacobi" else p[1:][::-1] for p in prompts]
     fwd0 = llm.stats["chunk_forwards"]
@@ -956,7 +1442,8 @@ def profile_decode(llm, prompts, name, sp):
             kernels[e.key] = kernels.get(e.key, 0.0) + t
     busy = sum(kernels.values())
     groups = {"paged_attention (this repo's kernel)": 0.0,
-              "spec_attention (this repo's kernel)": 0.0, "GEMM (cuBLAS)": 0.0, "other": 0.0}
+              "spec_attention (this repo's kernel)": 0.0, "int8 GEMM (cuBLASLt)": 0.0,
+              "GEMM (cuBLAS)": 0.0, "copies and dtype casts": 0.0, "other": 0.0}
     for kname, t in kernels.items():
         low = kname.lower()
         if "paged_attention" in low:
@@ -964,10 +1451,13 @@ def profile_decode(llm, prompts, name, sp):
         elif "spec_attention" in low:
             groups["spec_attention (this repo's kernel)"] += t
         elif any(w in low for w in ("gemm", "nvjet", "cutlass", "xmma")):
-            groups["GEMM (cuBLAS)"] += t
+            int8 = any(w in low for w in ("i8", "s8", "int8", "imma", "igemm"))
+            groups["int8 GEMM (cuBLASLt)" if int8 else "GEMM (cuBLAS)"] += t
+        elif "copy" in low or "memcpy" in low:
+            groups["copies and dtype casts"] += t
         else:
             groups["other"] += t
-    log(f"[profile] {name}, 4 requests x 32 new tokens, {fwds} batched forwards: wall "
+    log(f"[profile] {tag}{name}, 4 requests x 12 new tokens, {fwds} batched forwards: wall "
         f"{wall_ms:.1f} ms under the profiler, device busy {busy:.1f} ms "
         f"({busy / wall_ms * 100:.1f}% of wall, idle {100 - busy / wall_ms * 100:.1f}%)")
     for g, t in groups.items():
@@ -996,13 +1486,14 @@ def copy_task_samples(n, seed, vocab=256, eos=2):
     return out
 
 
-def param_items(params):
+def param_items(params, prefix=""):
+    """(dotted name, tensor) of every leaf of a parameter dict of any depth
+    (a quantized weight is a dict {"q", "s"} of its own)."""
     for k, v in params.items():
         if isinstance(v, dict):
-            for kk, vv in v.items():
-                yield f"layers.{kk}", vv
+            yield from param_items(v, f"{prefix}{k}.")
         else:
-            yield k, v
+            yield prefix + k, v
 
 
 def first_step_through(cfg, params, rope, batch, layout, impl):
@@ -1283,7 +1774,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phases = (sys.argv[1].split(",") if len(sys.argv) > 1
-              else ["kernel", "train_kernel", "demo", "full", "train"])
+              else ["kernel", "train_kernel", "demo", "full", "full_quant", "train"])
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
@@ -1298,32 +1789,53 @@ def main() -> int:
 
     timing = {}
     launches = {}
+    def run(name, fn, *args):
+        """One part of a phase, with its wall time on a line of its own."""
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"[phase] {name}: {time.perf_counter() - t:.1f}s")
+        return out
+
     if "kernel" in phases:
-        phase_kernel(timing)
-        phase_spec_kernel(timing)
+        run("kernel (paged attention)", phase_kernel, timing)
+        run("kernel (speculative attention)", phase_spec_kernel, timing)
+        run("kernel (int4 matmul)", phase_int4_kernel, timing)
+        phase_int4_path(launches)
+        phase_int8_gemm()
     if "train_kernel" in phases:
-        phase_train_kernel(timing)
+        run("train_kernel", phase_train_kernel, timing)
     counter = PlainOnCudaCounter()
     params = None
     if "demo" in phases:
-        phase_demo(counter, launches)
+        run("demo", phase_demo, counter, launches)
+        run("demo (quantized engines)", phase_demo_quant, counter, launches)
     if "full" in phases:
-        params = phase_full_width(counter, launches)
+        params = run("full", phase_full_width, counter, launches)
+    if "full_quant" in phases:
+        run("full_quant", phase_full_quant, counter, launches)
     if "train" in phases:
-        phase_train(counter, launches, params)
+        run("train", phase_train, counter, launches, params)
+    log(f"[phase] all, the build included: {time.perf_counter() - t0:.1f}s")
 
-    if all(p in phases for p in ("kernel", "train_kernel", "full", "train")):
+    if all(p in phases for p in ("kernel", "train_kernel", "full", "full_quant", "train")):
         # each kernel at its main-path shape (Jacobi decode B=4, L=64; the MR
-        # run's most frequent tier, B=4; the trainer's row of 4096 tokens),
-        # with the launches of that path's run
-        rows = [("paged_attention", timing["decode"], launches["jacobi"]),
-                ("spec_attention", timing[launches["mr_main_shape"]], launches["mr"])]
-        rows += [(n, timing[f"{n}_L4096"], launches["train"]) for n in TRAIN_KERNEL_NAMES]
+        # run's most frequent tier, B=4; the same two on the fp8 cache of the
+        # W8A8 run; one decoder layer's gate/up product at M=256; the trainer's
+        # row of 4096 tokens), with the launches of that path's run
+        rows = [("paged_attention", timing["decode"], launches["jacobi"]["paged_attention"]),
+                ("spec_attention", timing[launches["mr_main_shape"]],
+                 launches["mr"]["spec_attention"]),
+                ("paged_attention_fp8", timing["decode_fp8"],
+                 launches["w8a8_fp8_jacobi"]["paged_attention"]),
+                ("spec_attention_fp8", timing[launches["w8a8_fp8_mr_main_shape"] + "_fp8"],
+                 launches["w8a8_fp8_mr"]["spec_attention"]),
+                ("int4_matmul", timing["int4_gateup_M256"], launches["int4_path"]["int4_matmul"])]
+        rows += [(n, timing[f"{n}_L4096"], launches["train"][n]) for n in TRAIN_KERNEL_NAMES]
         print(json.dumps({"kernels": [{
-            "name": name, "route": "cuda", **KERNELS[name], "launches": counts[name],
+            "name": name, "route": "cuda", **KERNELS[name], "launches": count,
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        } for name, t, counts in rows]}), flush=True)
+        } for name, t, count in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

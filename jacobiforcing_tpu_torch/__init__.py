@@ -10,11 +10,13 @@ per-call API of `jacobiforcing_tpu_torch.modeling`, and the trainer
 `jacobiforcing_tpu_torch.train.trainer.train`) take an explicit `device`,
 "cuda" by default; without a card they raise unless `device="cpu"` is given.
 On a CUDA tensor the paged attention, the speculative attention of the
-multiblock (MR) decoder and the trainer's block-sparse attention (forward and
-backward) run the hand-written kernels in `csrc/paged_attention.cu`,
-`csrc/spec_attention.cu` and `csrc/train_attention.cu` (built with `nvcc` at
-first use into `build/kernels/`); on a CPU tensor they run their plain
-PyTorch versions.
+multiblock (MR) decoder, the trainer's block-sparse attention (forward and
+backward) and the int4 dequant-matmul run the hand-written kernels in
+`csrc/paged_attention.cu`, `csrc/spec_attention.cu`, `csrc/train_attention.cu`
+and `csrc/int4_matmul.cu` (built with `nvcc` at first use into
+`build/kernels/`); on a CPU tensor they run their plain PyTorch versions.
+Serving can be quantized: int8 or W8A8 weights (`ops/quant.py`) and an fp8 /
+int8 KV cache with per-row scales that the attention kernels read directly.
 """
 
 __version__ = "0.1.0"

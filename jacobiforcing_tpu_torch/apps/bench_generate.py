@@ -7,7 +7,8 @@ aggregate summary, so the two packages' summaries compare field by field.
 `run(args, engine=None)` builds the port's `LLM` on `args.device`.  The port
 serves the `ar`, `jacobi` and `mr` (multiblock with rejection recycling)
 strategies; `--max-blocks`, `--spawn-ratio`, `--lookahead-start-ratio` and
-`--n-gram-pool-size` shape `mr`.
+`--n-gram-pool-size` shape `mr`; `--quantization int8|w8a8` and
+`--kv-cache-dtype fp8|int8|bf16` serve the model quantized.
 
 Usage:
     python -m jacobiforcing_tpu_torch.apps.bench_generate \
@@ -16,6 +17,9 @@ Usage:
     python -m jacobiforcing_tpu_torch.apps.bench_generate \
         --model /path/to/ckpt --dataset prompts.jsonl --strategy mr \
         --n-token-seq-len 64 --max-blocks 2 --n-gram-pool-size 4 --output-dir out/
+    python -m jacobiforcing_tpu_torch.apps.bench_generate \
+        --model /path/to/ckpt --dataset prompts.jsonl --strategy jacobi \
+        --quantization w8a8 --kv-cache-dtype fp8 --output-dir out/
 """
 
 from __future__ import annotations
@@ -121,7 +125,8 @@ def run(args, engine=None, tokenizer=None):
     if engine is None:
         from jacobiforcing_tpu_torch.engine.llm import LLM
 
-        llm = LLM(model=args.model, device=args.device, num_kv_pages=args.num_kv_pages)
+        llm = LLM(model=args.model, device=args.device, num_kv_pages=args.num_kv_pages,
+                  quantization=args.quantization, kv_cache_dtype=args.kv_cache_dtype)
         engine, tokenizer = llm.engine, llm.tokenizer
 
     sp = build_sampling_params(args)
@@ -217,6 +222,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda")
     p.add_argument("--num-kv-pages", type=int, default=-1,
                    help="KV pool size in pages; -1 sizes it from free device memory")
+    p.add_argument("--quantization", choices=["", "int8", "w8a8"], default="",
+                   help="int8: weight-only; w8a8: int8 weights and activations")
+    p.add_argument("--kv-cache-dtype", choices=["", "fp8", "int8", "bf16"], default="",
+                   help="KV storage type; fp8 and int8 carry per-row scales")
     p.add_argument("--dataset", default="")
     p.add_argument("--dataset-format", choices=["generic", "humaneval", "math500"],
                    default="generic")

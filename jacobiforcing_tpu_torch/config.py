@@ -4,13 +4,14 @@ A copy of `jacobiforcing_tpu/config.py`: the same fields and defaults, so a
 configuration reads the same in both packages.  The port serves greedy
 autoregressive, single-block Jacobi and multiblock (MR) decoding, so the MR
 options (`pad`, the `jacobi_mr_*` auto-policy fields, the spawn / lookahead /
-pool fields) are read as in the JAX engine.  Options the port does not serve
-yet raise `NotImplementedError` when set instead of being ignored:
-quantization, a narrow KV cache dtype, tensor/data parallelism, the
-one-chunk-lag async host pipeline, and the options that only the non-greedy
-and on-policy decoders read.  The XLA compilation-cache and TPU memory-sizing
-fields have no counterpart here, nor do `jacobi_enabled` and `enforce_eager`,
-which neither package reads.
+pool fields) are read as in the JAX engine, and so are `quantization` ("int8"
+weight-only, "w8a8") and `kv_cache_dtype` ("fp8", "int8", "bf16"); any other
+string there raises `ValueError`.  Options the port does not serve yet raise
+`NotImplementedError` when set instead of being ignored: tensor/data
+parallelism, the one-chunk-lag async host pipeline, and the options that only
+the non-greedy and on-policy decoders read.  The XLA compilation-cache and
+TPU memory-sizing fields have no counterpart here, nor do `jacobi_enabled`
+and `enforce_eager`, which neither package reads.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import os
 from dataclasses import dataclass, field
 
 DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+QUANTIZATIONS = ("", "int8", "w8a8")
+KV_CACHE_DTYPES = ("", "fp8", "int8", "bf16")
 
 
 def _reject_unported(obj, defaults: dict) -> None:
@@ -77,7 +80,11 @@ class Config:
     jacobi_async_host: bool = False
 
     seed: int = 0
+    # "int8": weight-only int8 linear layers and lm_head; "w8a8": int8 weights
+    # and per-token int8 activations (int8 x int8 products).
     quantization: str = ""
+    # KV storage: "fp8" (e4m3) or "int8", each with per-row dequant scales, or
+    # "bf16" (a bfloat16 cache under a wider model); "" = the model dtype.
     kv_cache_dtype: str = ""
 
     # Resolved at engine init.
@@ -85,9 +92,13 @@ class Config:
 
     def __post_init__(self):
         assert self.kvcache_page_size % 16 == 0
+        if self.quantization not in QUANTIZATIONS:
+            raise ValueError(f"quantization={self.quantization!r}: expected one of "
+                             f"{QUANTIZATIONS}")
+        if self.kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(f"kv_cache_dtype={self.kv_cache_dtype!r}: expected one of "
+                             f"{KV_CACHE_DTYPES}")
         _reject_unported(self, {
-            "quantization": "",
-            "kv_cache_dtype": "",
             "tensor_parallel_size": 1,
             "data_parallel_size": 1,
             "jacobi_async_host": False,

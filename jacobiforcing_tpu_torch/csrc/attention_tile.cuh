@@ -13,10 +13,21 @@
 // (explicit fmaf/__fmul_rn/__fadd_rn so contraction cannot differ between
 // rows), and a tile that is fully masked for a row leaves its running state
 // exactly unchanged (alpha = exp(0) = 1, p = 0).
+//
+// Narrow K/V storage: the cache's element type S is a template parameter of
+// its own (float, bfloat16, fp8 e4m3, int8), apart from the query type T.  An
+// fp8 or int8 cache comes with one float32 dequant scale per stored row, at
+// scale[h * num_slots + slot]; a row is dequantized while it is staged, in
+// the query type: round_T(float(stored) * round_T(scale)).  That is bit for
+// bit what ops/kv_cache.dequantize_rows computes, so a committed row read
+// here equals the fake-quantized copy of the same row that the MR decoder
+// feeds in as an in-flight key, in float32 and in bfloat16 alike.  The value
+// depends on nothing but the key, so the properties above carry over.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -41,6 +52,7 @@ struct Vec<float> {
     o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
   }
   __device__ __forceinline__ static float from_f32(float x) { return x; }
+  __device__ __forceinline__ static float round(float x) { return x; }
 };
 
 template <>
@@ -57,6 +69,33 @@ struct Vec<__nv_bfloat16> {
     }
   }
   __device__ __forceinline__ static __nv_bfloat16 from_f32(float x) { return __float2bfloat16(x); }
+  // x rounded to the nearest bfloat16 (ties to even), as a float
+  __device__ __forceinline__ static float round(float x) {
+    return __bfloat162float(__float2bfloat16(x));
+  }
+};
+
+// Storage-only types: 16 elements per 16-byte load, each exact in float32.
+template <>
+struct Vec<__nv_fp8_e4m3> {
+  static constexpr int N = 16;
+  __device__ __forceinline__ static void load(const __nv_fp8_e4m3* p, float* o) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    const __nv_fp8_e4m3* e = reinterpret_cast<const __nv_fp8_e4m3*>(&x);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) o[i] = static_cast<float>(e[i]);
+  }
+};
+
+template <>
+struct Vec<int8_t> {
+  static constexpr int N = 16;
+  __device__ __forceinline__ static void load(const int8_t* p, float* o) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    const int8_t* e = reinterpret_cast<const int8_t*>(&x);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) o[i] = static_cast<float>(e[i]);
+  }
 };
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -122,22 +161,34 @@ __device__ __forceinline__ void load_q_tile(const T* __restrict__ q, float* q_s,
 }
 
 // Stage one tile of KT keys into k_s / v_s as fp32.  Key j lives at element
-// offset off_s[j] from k_base / v_base; a negative offset means "no key" and
-// stages zeros (the caller masks it).  All threads of the CTA take part.
-template <typename T, int D>
-__device__ __forceinline__ void stage_kv_tile(const T* __restrict__ k_base,
-                                              const T* __restrict__ v_base,
-                                              const long long* off_s, float* k_s, float* v_s,
+// offset off_s[j] from k_base / v_base (stored as S); a negative offset means
+// "no key" and stages zeros (the caller masks it).  With ks_s / vs_s (the
+// dequant scales of the tile's keys, both or neither) a row is dequantized in
+// the query type T as described above.  All threads of the CTA take part.
+template <typename T, typename S, int D>
+__device__ __forceinline__ void stage_kv_tile(const S* __restrict__ k_base,
+                                              const S* __restrict__ v_base,
+                                              const long long* off_s, const float* ks_s,
+                                              const float* vs_s, float* k_s, float* v_s,
                                               int tid) {
-  constexpr int NV = Vec<T>::N;
+  constexpr int NV = Vec<S>::N;
   for (int idx = tid; idx < KT * (D / NV); idx += THREADS) {
     const int j = idx / (D / NV);
     const int c = (idx % (D / NV)) * NV;
     const long long off = off_s[j];
     float kv[NV], vv[NV];
     if (off >= 0) {
-      Vec<T>::load(k_base + off + c, kv);
-      Vec<T>::load(v_base + off + c, vv);
+      Vec<S>::load(k_base + off + c, kv);
+      Vec<S>::load(v_base + off + c, vv);
+      if (ks_s != nullptr) {
+        const float ks = Vec<T>::round(ks_s[j]);
+        const float vs = Vec<T>::round(vs_s[j]);
+#pragma unroll
+        for (int e = 0; e < NV; ++e) {
+          kv[e] = Vec<T>::round(__fmul_rn(kv[e], ks));
+          vv[e] = Vec<T>::round(__fmul_rn(vv[e], vs));
+        }
+      }
     } else {
 #pragma unroll
       for (int e = 0; e < NV; ++e) kv[e] = vv[e] = 0.f;
@@ -243,5 +294,45 @@ __device__ __forceinline__ long long paged_key_offset(const int* bt, int P, int 
   if (page < 0) return -1;
   return ((long long)page * page_size + pos % page_size) * D;
 }
+
+// One tile's key offsets and, for a scaled cache, dequant scales: thread
+// `tid` < KT fills entry `tid` for the key at absolute position `pos` (no key
+// when `live` is false).  k_scale_h / v_scale_h point at the head's
+// [num_slots] scale rows, or are null.
+template <int D>
+__device__ __forceinline__ void fill_paged_key(long long* off_s, float* ks_s, float* vs_s,
+                                               int tid, bool live, const int* bt, int P,
+                                               int page_size, int pos,
+                                               const float* __restrict__ k_scale_h,
+                                               const float* __restrict__ v_scale_h) {
+  const long long off = live ? paged_key_offset(bt, P, page_size, pos, D) : -1;
+  off_s[tid] = off;
+  if (k_scale_h != nullptr) {
+    ks_s[tid] = off >= 0 ? k_scale_h[off / D] : 0.f;
+    vs_s[tid] = off >= 0 ? v_scale_h[off / D] : 0.f;
+  }
+}
+
+// The storage codes of the C interfaces: 0 float32, 1 bfloat16 (no scales),
+// 2 fp8 e4m3, 3 int8 (with scales).  Served pairs (query, cache): the cache in
+// the query's type, a bfloat16 cache under float32 queries, and fp8 / int8
+// under either.
+#define JF_DISPATCH_TYPES(QD, CD, HD, CALL)                                          \
+  do {                                                                               \
+    if ((QD) == 0 && (CD) == 0 && (HD) == 64) return CALL(float, float, 64);         \
+    if ((QD) == 0 && (CD) == 0 && (HD) == 128) return CALL(float, float, 128);       \
+    if ((QD) == 0 && (CD) == 1 && (HD) == 64) return CALL(float, __nv_bfloat16, 64); \
+    if ((QD) == 0 && (CD) == 1 && (HD) == 128) return CALL(float, __nv_bfloat16, 128); \
+    if ((QD) == 0 && (CD) == 2 && (HD) == 64) return CALL(float, __nv_fp8_e4m3, 64); \
+    if ((QD) == 0 && (CD) == 2 && (HD) == 128) return CALL(float, __nv_fp8_e4m3, 128); \
+    if ((QD) == 0 && (CD) == 3 && (HD) == 64) return CALL(float, int8_t, 64);        \
+    if ((QD) == 0 && (CD) == 3 && (HD) == 128) return CALL(float, int8_t, 128);      \
+    if ((QD) == 1 && (CD) == 1 && (HD) == 64) return CALL(__nv_bfloat16, __nv_bfloat16, 64); \
+    if ((QD) == 1 && (CD) == 1 && (HD) == 128) return CALL(__nv_bfloat16, __nv_bfloat16, 128); \
+    if ((QD) == 1 && (CD) == 2 && (HD) == 64) return CALL(__nv_bfloat16, __nv_fp8_e4m3, 64); \
+    if ((QD) == 1 && (CD) == 2 && (HD) == 128) return CALL(__nv_bfloat16, __nv_fp8_e4m3, 128); \
+    if ((QD) == 1 && (CD) == 3 && (HD) == 64) return CALL(__nv_bfloat16, int8_t, 64); \
+    if ((QD) == 1 && (CD) == 3 && (HD) == 128) return CALL(__nv_bfloat16, int8_t, 128); \
+  } while (0)
 
 }  // namespace jf

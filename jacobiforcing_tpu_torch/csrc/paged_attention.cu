@@ -6,7 +6,12 @@
 // jacobiforcing_tpu_torch.ops.attention.paged_attention_ref: queries
 // q[B, L, NH, D] at absolute positions[B, L] attend to one layer of the
 // head-major paged cache k/v[KH, num_slots, D] through block_tables[B, P];
-// key j counts iff j < cache_lens[b] and j <= position.
+// key j counts iff j < cache_lens[b] and j <= position.  The cache may be
+// stored narrower than the queries (bfloat16 under float32; fp8 e4m3 or int8
+// with one float32 dequant scale per stored row, k_scale / v_scale
+// [KH, num_slots]): the TPU kernel folds the K scale into the scores and the
+// V scale into the probabilities; here a row is dequantized once while it is
+// staged (attention_tile.cuh), which is the same function.
 //
 // Design (a simple kernel that is right first):
 //   * one CTA per (query-row tile, KV head h, sequence b).  A query row is one
@@ -19,8 +24,9 @@
 //     min(cache_len, last position of the CTA + 1) are never read, nor is a
 //     -1 page: dead tail slots and padding rows cost nothing and never fault;
 //   * exact online softmax in fp32 with -inf masking, fp32 accumulation, on
-//     the CUDA cores.  Inputs float32 or bfloat16; D in {64, 128} is a
-//     template parameter; any page size that is a multiple of 16.  The tile
+//     the CUDA cores.  Queries float32 or bfloat16; D in {64, 128} and the
+//     cache's storage type are template parameters; any page size that is a
+//     multiple of 16.  The tile
 //     arithmetic lives in attention_tile.cuh, shared with spec_attention.cu.
 //
 // Bit stability (the property greedy Jacobi == greedy AR rests on): the
@@ -50,10 +56,11 @@ namespace {
 
 using namespace jf;
 
-template <typename T, int D>
+template <typename T, typename S, int D>
 __global__ void __launch_bounds__(THREADS)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
-                       const T* __restrict__ v_cache, const int* __restrict__ block_tables,
+paged_attention_kernel(const T* __restrict__ q, const S* __restrict__ k_cache,
+                       const S* __restrict__ v_cache, const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale, const int* __restrict__ block_tables,
                        const int* __restrict__ cache_lens, const int* __restrict__ positions,
                        T* __restrict__ out, int L, int NH, int KH, int P, long long num_slots,
                        int page_size, float scale) {
@@ -62,6 +69,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   float* k_s = q_s + ROWS * D;              // [KT][D + 4]
   float* v_s = k_s + KT * K_STRIDE<D>;    // [KT][D]
   __shared__ long long off_s[KT];
+  __shared__ float ks_s[KT], vs_s[KT];  // the tile's dequant scales (scaled cache only)
   __shared__ int pos_s[ROWS];
   __shared__ int kv_end_s;
 
@@ -97,17 +105,20 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   st.init();
 
   const int* bt = block_tables + (long long)b * P;
-  const T* k_head = k_cache + (long long)h * num_slots * D;
-  const T* v_head = v_cache + (long long)h * num_slots * D;
+  const S* k_head = k_cache + (long long)h * num_slots * D;
+  const S* v_head = v_cache + (long long)h * num_slots * D;
+  const bool scaled = k_scale != nullptr;
+  const float* ks_head = scaled ? k_scale + (long long)h * num_slots : nullptr;
+  const float* vs_head = scaled ? v_scale + (long long)h * num_slots : nullptr;
 
   for (int k0 = 0; k0 < kv_end; k0 += KT) {
     __syncthreads();  // the previous tile is consumed
-    if (tid < KT) {
-      const int pos = k0 + tid;
-      off_s[tid] = pos < kv_end ? paged_key_offset(bt, P, page_size, pos, D) : -1;
-    }
+    if (tid < KT)
+      fill_paged_key<D>(off_s, ks_s, vs_s, tid, k0 + tid < kv_end, bt, P, page_size, k0 + tid,
+                        ks_head, vs_head);
     __syncthreads();
-    stage_kv_tile<T, D>(k_head, v_head, off_s, k_s, v_s, tid);
+    stage_kv_tile<T, S, D>(k_head, v_head, off_s, scaled ? ks_s : nullptr,
+                           scaled ? vs_s : nullptr, k_s, v_s, tid);
     __syncthreads();
     if (warp_max_pos < k0) continue;  // tile in every row's causal future
 
@@ -123,18 +134,20 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   store_rows<T, D>(out, st, b, L, NH, h, G, row0, warp, lane);
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* bt, const void* cl,
-           const void* pos, void* out, int B, int L, int NH, int KH, int P, long long num_slots,
-           int page_size, float scale, cudaStream_t stream) {
+template <typename T, typename S, int D>
+int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+           const void* bt, const void* cl, const void* pos, void* out, int B, int L, int NH,
+           int KH, int P, long long num_slots, int page_size, float scale,
+           cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(paged_attention_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(paged_attention_kernel<T, S, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = (NH / KH) * L;
   const dim3 grid((rows + ROWS - 1) / ROWS, KH, B);
-  paged_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+  paged_attention_kernel<T, S, D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const S*>(k), static_cast<const S*>(v),
+      static_cast<const float*>(ks), static_cast<const float*>(vs),
       static_cast<const int*>(bt), static_cast<const int*>(cl), static_cast<const int*>(pos),
       static_cast<T*>(out), L, NH, KH, P, num_slots, page_size, scale);
   return (int)cudaGetLastError();
@@ -142,23 +155,26 @@ int launch(const void* q, const void* k, const void* v, const void* bt, const vo
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns 0 on success, a cudaError_t
-// code after a refused launch, or -1 for a shape/dtype the kernel does not
-// take (the Python wrapper checks those first).
-extern "C" int jf_paged_attention(const void* q, const void* k, const void* v, const void* bt,
+// dtype (queries and output): 0 = float32, 1 = bfloat16.  cache_dtype: 0 =
+// float32, 1 = bfloat16, 2 = fp8 e4m3, 3 = int8; k_scale / v_scale are the
+// [KH, num_slots] float32 dequant scales for codes 2 and 3 and null otherwise.
+// Returns 0 on success, a cudaError_t code after a refused launch, or -1 for a
+// shape/dtype the kernel does not take (the Python wrapper checks those first).
+extern "C" int jf_paged_attention(const void* q, const void* k, const void* v,
+                                  const void* k_scale, const void* v_scale, const void* bt,
                                   const void* cl, const void* pos, void* out, int B, int L,
                                   int NH, int KH, int D, int P, long long num_slots,
-                                  int page_size, float scale, int dtype, void* stream) {
+                                  int page_size, float scale, int dtype, int cache_dtype,
+                                  void* stream) {
   if (B <= 0 || L <= 0 || KH <= 0 || NH % KH != 0 || page_size % 16 != 0) return -1;
+  if ((cache_dtype >= 2) != (k_scale != nullptr) || (k_scale == nullptr) != (v_scale == nullptr))
+    return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, bt, cl, pos, out, B, L, NH, KH, P, num_slots, page_size, scale, s);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, bt, cl, pos, out, B, L, NH, KH, P, num_slots, page_size, scale, s);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, bt, cl, pos, out, B, L, NH, KH, P, num_slots, page_size, scale, s);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, bt, cl, pos, out, B, L, NH, KH, P, num_slots, page_size, scale, s);
+#define JF_CALL(T, S, HD)                                                                  \
+  launch<T, S, HD>(q, k, v, k_scale, v_scale, bt, cl, pos, out, B, L, NH, KH, P, num_slots, \
+                   page_size, scale, s)
+  JF_DISPATCH_TYPES(dtype, cache_dtype, D, JF_CALL);
+#undef JF_CALL
   return -1;
 }
 

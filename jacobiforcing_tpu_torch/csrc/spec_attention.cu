@@ -9,7 +9,12 @@
 // j < cache_lens[b]; every in-flight query lies past the committed length, so
 // there is no causal term) AND to the in-flight block k_new/v_new[B, T, KH, D],
 // which is in no cache, under intra_mask[B, T, T] (one byte per entry, shared
-// by all heads), with ONE softmax over both.  It writes no K/V.
+// by all heads), with ONE softmax over both.  It writes no K/V.  The cache may
+// be stored narrower than the queries (bfloat16 under float32; fp8 e4m3 or
+// int8 with per-row float32 dequant scales k_scale / v_scale [KH, num_slots]),
+// as in paged_attention.cu: committed rows are dequantized while staged, in
+// the query type.  The in-flight block always comes in the query type (for a
+// scaled cache the caller has fake-quantized it the same way).
 //
 // Design (a simple kernel that is right first):
 //   * one CTA per (64 query rows, KV head h, sequence b), rows token-major, as
@@ -46,10 +51,11 @@ namespace {
 
 using namespace jf;
 
-template <typename T, int D>
+template <typename T, typename S, int D>
 __global__ void __launch_bounds__(THREADS)
-spec_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
-                      const T* __restrict__ v_cache, const int* __restrict__ block_tables,
+spec_attention_kernel(const T* __restrict__ q, const S* __restrict__ k_cache,
+                      const S* __restrict__ v_cache, const float* __restrict__ k_scale,
+                      const float* __restrict__ v_scale, const int* __restrict__ block_tables,
                       const int* __restrict__ cache_lens, const T* __restrict__ k_new,
                       const T* __restrict__ v_new, const unsigned char* __restrict__ intra_mask,
                       T* __restrict__ out, int L, int NH, int KH, int P, long long num_slots,
@@ -59,6 +65,7 @@ spec_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   float* k_s = q_s + ROWS * D;              // [KT][D + 4]
   float* v_s = k_s + KT * K_STRIDE<D>;    // [KT][D]
   __shared__ long long off_s[KT];
+  __shared__ float ks_s[KT], vs_s[KT];  // the tile's dequant scales (scaled cache only)
   __shared__ int tok_s[ROWS];  // token of each query row, -1 past the last row
 
   const int b = blockIdx.z;
@@ -80,16 +87,19 @@ spec_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
 
   // ---- phase 1: the committed keys, length mask only ----
   const int* bt = block_tables + (long long)b * P;
-  const T* k_head = k_cache + (long long)h * num_slots * D;
-  const T* v_head = v_cache + (long long)h * num_slots * D;
+  const S* k_head = k_cache + (long long)h * num_slots * D;
+  const S* v_head = v_cache + (long long)h * num_slots * D;
+  const bool scaled = k_scale != nullptr;
+  const float* ks_head = scaled ? k_scale + (long long)h * num_slots : nullptr;
+  const float* vs_head = scaled ? v_scale + (long long)h * num_slots : nullptr;
   for (int k0 = 0; k0 < clen; k0 += KT) {
     __syncthreads();  // q_s is loaded / the previous tile is consumed
-    if (tid < KT) {
-      const int pos = k0 + tid;
-      off_s[tid] = pos < clen ? paged_key_offset(bt, P, page_size, pos, D) : -1;
-    }
+    if (tid < KT)
+      fill_paged_key<D>(off_s, ks_s, vs_s, tid, k0 + tid < clen, bt, P, page_size, k0 + tid,
+                        ks_head, vs_head);
     __syncthreads();
-    stage_kv_tile<T, D>(k_head, v_head, off_s, k_s, v_s, tid);
+    stage_kv_tile<T, S, D>(k_head, v_head, off_s, scaled ? ks_s : nullptr,
+                           scaled ? vs_s : nullptr, k_s, v_s, tid);
     __syncthreads();
     const unsigned visible = off_s[lane] >= 0 ? 0xffffu : 0u;
     if (!__any_sync(FULL, visible != 0)) continue;  // a tile of -1 pages
@@ -106,7 +116,7 @@ spec_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
       off_s[tid] = j < L ? (long long)j * KH * D : -1;
     }
     __syncthreads();
-    stage_kv_tile<T, D>(k_new + blk0, v_new + blk0, off_s, k_s, v_s, tid);
+    stage_kv_tile<T, T, D>(k_new + blk0, v_new + blk0, off_s, nullptr, nullptr, k_s, v_s, tid);
     __syncthreads();
     const int j = j0 + lane;
     unsigned visible = 0;
@@ -124,19 +134,20 @@ spec_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   store_rows<T, D>(out, st, b, L, NH, h, G, row0, warp, lane);
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* bt, const void* cl,
-           const void* k_new, const void* v_new, const void* mask, void* out, int B, int L,
-           int NH, int KH, int P, long long num_slots, int page_size, float scale,
-           cudaStream_t stream) {
+template <typename T, typename S, int D>
+int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+           const void* bt, const void* cl, const void* k_new, const void* v_new,
+           const void* mask, void* out, int B, int L, int NH, int KH, int P,
+           long long num_slots, int page_size, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(spec_attention_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(spec_attention_kernel<T, S, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = (NH / KH) * L;
   const dim3 grid((rows + ROWS - 1) / ROWS, KH, B);
-  spec_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+  spec_attention_kernel<T, S, D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const S*>(k), static_cast<const S*>(v),
+      static_cast<const float*>(ks), static_cast<const float*>(vs),
       static_cast<const int*>(bt), static_cast<const int*>(cl), static_cast<const T*>(k_new),
       static_cast<const T*>(v_new), static_cast<const unsigned char*>(mask),
       static_cast<T*>(out), L, NH, KH, P, num_slots, page_size, scale);
@@ -145,28 +156,27 @@ int launch(const void* q, const void* k, const void* v, const void* bt, const vo
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns 0 on success, a cudaError_t
-// code after a refused launch, or -1 for a shape/dtype the kernel does not
-// take (the Python wrapper checks those first).
-extern "C" int jf_spec_attention(const void* q, const void* k, const void* v, const void* bt,
+// dtype (queries, in-flight block and output): 0 = float32, 1 = bfloat16.
+// cache_dtype: 0 = float32, 1 = bfloat16, 2 = fp8 e4m3, 3 = int8; k_scale /
+// v_scale are the [KH, num_slots] float32 dequant scales for codes 2 and 3 and
+// null otherwise.  Returns 0 on success, a cudaError_t code after a refused
+// launch, or -1 for a shape/dtype the kernel does not take (the Python wrapper
+// checks those first).
+extern "C" int jf_spec_attention(const void* q, const void* k, const void* v,
+                                 const void* k_scale, const void* v_scale, const void* bt,
                                  const void* cl, const void* k_new, const void* v_new,
                                  const void* mask, void* out, int B, int L, int NH, int KH,
                                  int D, int P, long long num_slots, int page_size, float scale,
-                                 int dtype, void* stream) {
+                                 int dtype, int cache_dtype, void* stream) {
   if (B <= 0 || L <= 0 || KH <= 0 || NH % KH != 0 || page_size % 16 != 0) return -1;
+  if ((cache_dtype >= 2) != (k_scale != nullptr) || (k_scale == nullptr) != (v_scale == nullptr))
+    return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, bt, cl, k_new, v_new, mask, out, B, L, NH, KH, P,
-                             num_slots, page_size, scale, s);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, bt, cl, k_new, v_new, mask, out, B, L, NH, KH, P,
-                              num_slots, page_size, scale, s);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, bt, cl, k_new, v_new, mask, out, B, L, NH, KH, P,
-                                     num_slots, page_size, scale, s);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, bt, cl, k_new, v_new, mask, out, B, L, NH, KH, P,
-                                      num_slots, page_size, scale, s);
+#define JF_CALL(T, S, HD)                                                                    \
+  launch<T, S, HD>(q, k, v, k_scale, v_scale, bt, cl, k_new, v_new, mask, out, B, L, NH, KH, \
+                   P, num_slots, page_size, scale, s)
+  JF_DISPATCH_TYPES(dtype, cache_dtype, D, JF_CALL);
+#undef JF_CALL
   return -1;
 }
 

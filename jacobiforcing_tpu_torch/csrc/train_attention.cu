@@ -159,7 +159,7 @@ train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     __syncthreads();  // q_s and the row tables are loaded / the previous tile is consumed
     if (tid < KT) off_s[tid] = k0 + tid < L ? (long long)(k0 + tid) * KH * D : -1;
     __syncthreads();
-    stage_kv_tile<T, D>(k + h * D, v + h * D, off_s, k_s, v_s, tid);
+    stage_kv_tile<T, T, D>(k + h * D, v + h * D, off_s, nullptr, nullptr, k_s, v_s, tid);
     __syncthreads();
     unsigned visible = 0xffffu;
     if (!(ent & 1)) {

@@ -7,8 +7,14 @@
 
 `generate` merges the greedy/Jacobi convenience kwargs into SamplingParams
 and delegates to the engine.  Keyword arguments that name a `Config` field
-configure the engine; the rest (`device`, `dtype`, `num_kv_pages`,
-`model_cfg`, `params`) go to `LLMEngine`.
+configure the engine; the rest (`device`, `dtype`, `num_kv_pages`, `kv_dtype`,
+`model_cfg`, `params`) go to `LLMEngine`.  Quantized serving is configuration:
+
+    llm = LLM(model=..., quantization="w8a8", kv_cache_dtype="fp8")
+
+`quantization` is "int8" (weight-only) or "w8a8"; `kv_cache_dtype` is "fp8",
+"int8" or "bf16".  Every greedy strategy runs inside each, with identical
+token streams.
 """
 
 from __future__ import annotations

@@ -25,6 +25,7 @@ per forward) move within the spread across seeds.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import time
@@ -41,8 +42,12 @@ from jacobiforcing_tpu_torch.engine.multiblock import STATE_KEYS, jacobi_chunk_m
 from jacobiforcing_tpu_torch.engine.scheduler import Scheduler
 from jacobiforcing_tpu_torch.engine.sequence import Sequence
 from jacobiforcing_tpu_torch.models.qwen import ModelConfig, rope_table
-from jacobiforcing_tpu_torch.ops.kv_cache import alloc_kv_cache
+from jacobiforcing_tpu_torch.ops.kv_cache import alloc_kv_cache, needs_row_scales
+from jacobiforcing_tpu_torch.ops.quant import int_mm_layout, quantize_params
 from jacobiforcing_tpu_torch.utils.device import resolve_device
+
+
+KV_DTYPES = {"fp8": torch.float8_e4m3fn, "int8": torch.int8, "bf16": torch.bfloat16}
 
 
 def _bucket(n: int, buckets: PySeq[int]) -> int:
@@ -64,6 +69,7 @@ class LLMEngine:
         params: Optional[Dict[str, Any]] = None,
         tokenizer=None,
         num_kv_pages: Optional[int] = None,
+        kv_dtype: Optional[torch.dtype] = None,
         dtype: torch.dtype = torch.bfloat16,
         device="cuda",
     ):
@@ -74,6 +80,14 @@ class LLMEngine:
 
             model_cfg, params = load_checkpoint(config.model_path, dtype=dtype, device=self.device)
         assert model_cfg is not None
+        if config.quantization in ("int8", "w8a8"):
+            # leaves that are quantized already (`init_quantized_params`) stay
+            params = quantize_params(params)
+            if config.quantization == "w8a8":
+                # per-token activation quantization + int8 x int8 products
+                model_cfg = dataclasses.replace(model_cfg, act_quant=True)
+                if self.device.type == "cuda":
+                    params = int_mm_layout(params)  # the int8 GEMM's fast layout
         self.model_cfg = model_cfg
         self.params = params
         self.tokenizer = tokenizer
@@ -81,13 +95,19 @@ class LLMEngine:
             config.eos = tokenizer.eos_token_id
         self.rope = rope_table(model_cfg, self.device)
 
+        if kv_dtype is None and config.kv_cache_dtype:
+            kv_dtype = KV_DTYPES[config.kv_cache_dtype]
+        kv_dtype = kv_dtype or model_cfg.dtype
+        if kv_dtype == torch.float8_e5m2:
+            raise NotImplementedError("a float8_e5m2 KV cache is not supported by the PyTorch "
+                                      "port yet (float8_e4m3fn and int8 are)")
         page = config.kvcache_page_size
         npages = num_kv_pages or (config.num_kv_pages if config.num_kv_pages > 0 else None)
         if npages is None:
-            npages = self._pages_from_memory(page)
+            npages = self._pages_from_memory(page, kv_dtype)
         self.kv = alloc_kv_cache(
             model_cfg.num_layers, npages, page, model_cfg.num_kv_heads,
-            model_cfg.head_dim, model_cfg.dtype, self.device,
+            model_cfg.head_dim, kv_dtype, self.device,
         )
         self.block_manager = BlockManager(npages, page)
         self.scheduler = Scheduler(config, self.block_manager)
@@ -104,14 +124,18 @@ class LLMEngine:
         self._mr_policies: Dict[tuple, MRAutoPolicy] = {}
 
     # ------------------------------------------------------------------
-    def _pages_from_memory(self, page: int) -> int:
-        """Size the KV pool from free device memory (40k-page hard cap)."""
+    def _pages_from_memory(self, page: int, kv_dtype: torch.dtype) -> int:
+        """Size the KV pool from free device memory (40k-page hard cap): the
+        storage type's element size, plus 4 bytes per row and KV head for each
+        scale plane of a narrow type."""
         if self.device.type != "cuda":
             raise ValueError("on the CPU pass num_kv_pages: there is no device memory to size "
                              "the KV pool from")
         mc = self.model_cfg
-        itemsize = torch.empty((), dtype=mc.dtype).element_size()
+        itemsize = torch.empty((), dtype=kv_dtype).element_size()
         bytes_per_tok = 2 * mc.num_layers * mc.num_kv_heads * mc.head_dim * itemsize
+        if needs_row_scales(kv_dtype):
+            bytes_per_tok += 2 * mc.num_layers * mc.num_kv_heads * 4
         free, total = torch.cuda.mem_get_info(self.device)
         avail = max(int(total * self.config.hbm_utilization) - (total - free), 1 << 28)
         npages = int(avail // (bytes_per_tok * page))
@@ -133,9 +157,7 @@ class LLMEngine:
             )
         room = self.config.max_model_len - len(token_ids)
         if sampling_params.max_tokens > room:
-            from dataclasses import replace
-
-            sampling_params = replace(sampling_params, max_tokens=room)
+            sampling_params = dataclasses.replace(sampling_params, max_tokens=room)
         seq = Sequence(token_ids, sampling_params)
         self.scheduler.add(seq)
         return seq

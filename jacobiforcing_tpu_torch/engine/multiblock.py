@@ -38,7 +38,12 @@ from typing import Any, Dict, NamedTuple
 import torch
 
 from jacobiforcing_tpu_torch.models.qwen import ModelConfig, forward_spec, greedy_tokens
-from jacobiforcing_tpu_torch.ops.kv_cache import KVCache, write_plan
+from jacobiforcing_tpu_torch.ops.kv_cache import (
+    KVCache,
+    quantize_rows,
+    storage_view,
+    write_plan,
+)
 
 # keys of the returned dict that carry the per-sequence MR state between chunks
 STATE_KEYS = (
@@ -497,8 +502,18 @@ def jacobi_chunk_multiblock(
         # out-of-range slots (uncommitted tokens, -1 pages) are dropped
         src_rows, dest = write_plan(slots, kv.num_slots)
         Lyr, _, _, KH, D = kw.shape
-        kv.k[:, :, dest] = kw.reshape(Lyr, B * N, KH, D)[:, src_rows].transpose(1, 2).to(kv.k.dtype)
-        kv.v[:, :, dest] = vw.reshape(Lyr, B * N, KH, D)[:, src_rows].transpose(1, 2).to(kv.v.dtype)
+        kw = kw.reshape(Lyr, B * N, KH, D)[:, src_rows].transpose(1, 2)  # [Lyr, KH, R, D]
+        vw = vw.reshape(Lyr, B * N, KH, D)[:, src_rows].transpose(1, 2)
+        if kv.scaled:  # narrow KV: per-row quantization + scale scatter
+            kw, ksw = quantize_rows(kw, kv.k.dtype)
+            vw, vsw = quantize_rows(vw, kv.v.dtype)
+            kv.k_scale[:, :, dest] = ksw
+            kv.v_scale[:, :, dest] = vsw
+            storage_view(kv.k)[:, :, dest] = storage_view(kw)
+            storage_view(kv.v)[:, :, dest] = storage_view(vw)
+        else:
+            kv.k[:, :, dest] = kw.to(kv.k.dtype)
+            kv.v[:, :, dest] = vw.to(kv.v.dtype)
 
         cur_len2 = st.cur_len + acc_w
         generated2 = st.generated + acc_w

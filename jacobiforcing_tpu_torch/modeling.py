@@ -6,8 +6,11 @@ PyTorch port of `jacobiforcing_tpu/modeling.py`:
 
 Each call owns a private paged KV cache and runs the decode loops of
 `engine/runner.py` and `engine/multiblock.py` directly: no engine, no
-scheduler.  Both take the device ("cuda" by default) and an explicit seed,
-and return (token_ids, stats).
+scheduler.  Both take the device ("cuda" by default), an explicit seed and
+`kv_dtype` (the private cache's storage type; None = the model dtype;
+`torch.float8_e4m3fn` and `torch.int8` are stored with per-row scales), and
+return (token_ids, stats).  Quantized parameters (`ops/quant.py`) are served
+as they come.
 """
 
 from __future__ import annotations
@@ -25,12 +28,13 @@ from jacobiforcing_tpu_torch.ops.kv_cache import alloc_kv_cache
 from jacobiforcing_tpu_torch.utils.device import resolve_device
 
 
-def _setup(cfg, prompt, max_new, L, page_size, dev):
+def _setup(cfg, prompt, max_new, L, page_size, kv_dtype, dev):
     rope = rope_table(cfg, dev)
     cap = len(prompt) + max_new + 2 * L + 1
     n_pages = (cap + page_size - 1) // page_size
     kv = alloc_kv_cache(
-        cfg.num_layers, n_pages, page_size, cfg.num_kv_heads, cfg.head_dim, cfg.dtype, dev)
+        cfg.num_layers, n_pages, page_size, cfg.num_kv_heads, cfg.head_dim,
+        kv_dtype or cfg.dtype, dev)
     bt = torch.arange(n_pages, dtype=torch.int32, device=dev)[None, :]
     return rope, kv, bt, n_pages * page_size, cap
 
@@ -71,13 +75,15 @@ def jacobi_generate_greedy(
     eos_token_id: int = -1,
     max_iterations: int = 1024,
     page_size: int = 256,
+    kv_dtype=None,
     seed: int = 0,
     device="cuda",
 ) -> Tuple[List[int], Dict[str, float]]:
     """Single-block greedy Jacobi generation for one prompt."""
     dev = resolve_device(device)
     L = n_token_seq_len
-    rope, kv, bt, capacity, cap = _setup(cfg, prompt_ids, max_new_tokens, L, page_size, dev)
+    rope, kv, bt, capacity, cap = _setup(
+        cfg, prompt_ids, max_new_tokens, L, page_size, kv_dtype, dev)
     P = len(prompt_ids)
     pf = _prefill_with_draft(params, cfg, rope, kv, bt, prompt_ids, L,
                              np.random.RandomState(seed), dev)
@@ -111,6 +117,7 @@ def jacobi_generate_multiblock(
     pad_token_id: int = 0,
     max_iterations: int = 1024,
     page_size: int = 256,
+    kv_dtype=None,
     seed: int = 0,
     device="cuda",
 ) -> Tuple[List[int], Dict[str, float]]:
@@ -120,7 +127,7 @@ def jacobi_generate_multiblock(
     C = max(1, n_gram_pool_size)
     W = 2 * N
     rope, kv, bt, capacity, cap = _setup(
-        cfg, prompt_ids, max_new_tokens, N * max(K, 1), page_size, dev)
+        cfg, prompt_ids, max_new_tokens, N * max(K, 1), page_size, kv_dtype, dev)
     P = len(prompt_ids)
     pf = _prefill_with_draft(params, cfg, rope, kv, bt, prompt_ids, N,
                              np.random.RandomState(seed), dev)[0]

@@ -11,6 +11,12 @@ reads the committed cache, writes nothing, and returns the block's K/V.
 `forward_dense` is the training forward: no cache, differentiable, attention
 under a dense mask or through the block-sparse training kernels.
 
+Quantized serving: a linear weight may be the int8 dict of `ops/quant.py`
+(weight-only, or W8A8 with `ModelConfig.act_quant`), and the KV cache may be
+stored as fp8 e4m3 / int8 with per-row scales (`ops/kv_cache.py`); `forward`
+then quantizes what it writes and `forward_spec` fake-quantizes the in-flight
+block, so every decoder sees the same stored values.
+
 Sums are accumulated in float32, or float64 for a float64 model, exactly as
 `acc_dtype` does there.  Qwen2-style (QKV bias) and Qwen3-style (per-head
 q/k RMSNorm) checkpoints are both supported through `ModelConfig` flags.
@@ -28,7 +34,15 @@ from torch.utils.checkpoint import checkpoint
 
 from jacobiforcing_tpu_torch.ops.attention import paged_attention, paged_attention_with_block
 from jacobiforcing_tpu_torch.ops.train_attention import masked_attention, train_attention
-from jacobiforcing_tpu_torch.ops.kv_cache import KVCache, write_kv, write_plan
+from jacobiforcing_tpu_torch.ops.kv_cache import (
+    KVCache,
+    dequantize_rows,
+    quantize_rows,
+    write_kv,
+    write_kv_scaled,
+    write_plan,
+)
+from jacobiforcing_tpu_torch.ops.quant import act_quantize, int8_matmul, mm
 from jacobiforcing_tpu_torch.utils.device import resolve_device
 
 
@@ -49,6 +63,9 @@ class ModelConfig:
     qkv_bias: bool = True  # Qwen2-style; False => Qwen3-style qk-norm
     qk_norm: bool = False
     tie_word_embeddings: bool = False
+    # W8A8 serving: per-token activation quantization and int8 x int8 products
+    # (`ops/quant.mm` with a8=True); the engine sets it for quantization="w8a8".
+    act_quant: bool = False
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -176,6 +193,13 @@ def init_params(
 # ---------------------------------------------------------------------------
 
 
+def _layer_weights(lp: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer i's weights: a stacked tensor (or a list of per-layer tensors) is
+    indexed, a quantized leaf {"q", "s"} is indexed leaf by leaf."""
+    return {name: {k: v[i] for k, v in t.items()} if isinstance(t, dict) else t[i]
+            for name, t in lp.items()}
+
+
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     """Accumulation dtype: float32, or float64 when the model runs in float64."""
     return torch.float64 if dtype == torch.float64 else torch.float32
@@ -289,14 +313,21 @@ def forward(
 
     lp = params["layers"]
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    scaled = kv_cache.scaled  # narrow KV with per-row dequant scales
     h = x
     for i in range(cfg.num_layers):
-        w = {name: t[i] for name, t in lp.items()}
+        w = _layer_weights(lp, i)
         q, kk, vv = _layer_qkv(cfg, w, h, cos, sin)
         k_l, v_l = kv_cache.k[i], kv_cache.v[i]
-        write_kv(k_l, v_l, kk, vv, slots, plan)
+        ks_l = vs_l = None
+        if scaled:
+            ks_l, vs_l = kv_cache.k_scale[i], kv_cache.v_scale[i]
+            write_kv_scaled(k_l, v_l, ks_l, vs_l, kk, vv, slots, plan)
+        else:
+            write_kv(k_l, v_l, kk, vv, slots, plan)
         o = paged_attention(
             q, k_l, v_l, block_tables, cache_lens, positions, scale, page_size=page,
+            k_scale_l=ks_l, v_scale_l=vs_l,
         )  # [B, T, NH, D]
         h = _layer_out(cfg, w, h, o)
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
@@ -307,10 +338,11 @@ def _layer_qkv(cfg: ModelConfig, w, h, cos, sin):
     """Pre-norm, QKV projection (+bias / qk-norm) and RoPE of one layer:
     (q [B,T,NH,D], k [B,T,KH,D], v [B,T,KH,D])."""
     B, T, _ = h.shape
+    a8 = cfg.act_quant
     hn = rms_norm(h, w["ln1"], cfg.rms_norm_eps)
-    q = hn @ w["wq"]
-    kk = hn @ w["wk"]
-    vv = hn @ w["wv"]
+    q = mm(hn, w["wq"], a8)
+    kk = mm(hn, w["wk"], a8)
+    vv = mm(hn, w["wv"], a8)
     if cfg.qkv_bias:
         q = q + w["bq"]
         kk = kk + w["bk"]
@@ -327,11 +359,12 @@ def _layer_qkv(cfg: ModelConfig, w, h, cos, sin):
 def _layer_out(cfg: ModelConfig, w, h, o):
     """Output projection of the attention result `o` and the MLP, both residual."""
     B, T, _ = h.shape
-    h = h + o.reshape(B, T, cfg.q_size) @ w["wo"]
+    a8 = cfg.act_quant
+    h = h + mm(o.reshape(B, T, cfg.q_size), w["wo"], a8)
     hn = rms_norm(h, w["ln2"], cfg.rms_norm_eps)
-    g = hn @ w["w_gate"]
-    u = hn @ w["w_up"]
-    return h + (F.silu(g.to(acc_dtype(cfg.dtype))).to(u.dtype) * u) @ w["w_down"]
+    g = mm(hn, w["w_gate"], a8)
+    u = mm(hn, w["w_up"], a8)
+    return h + mm(F.silu(g.to(acc_dtype(cfg.dtype))).to(u.dtype) * u, w["w_down"], a8)
 
 
 def forward_spec(
@@ -350,11 +383,6 @@ def forward_spec(
     Returns (hidden [B, T, H], k_new [layers, B, T, KH, D], v_new [...]), so
     the caller can scatter only the verified winner's K/V into the cache.
     """
-    if kv_cache.k.dtype != cfg.dtype:
-        # the JAX version fake-quantizes the in-flight block for a scaled
-        # (fp8/int8) cache; narrow KV storage is not ported yet
-        raise NotImplementedError(f"a KV cache stored as {kv_cache.k.dtype} under a "
-                                  f"{cfg.dtype} model is not supported by the PyTorch port yet")
     block_tables = block_tables.to(torch.int32).contiguous()
     cache_lens = cache_lens.to(torch.int32).contiguous()
     intra_mask = intra_mask.contiguous()
@@ -365,13 +393,22 @@ def forward_spec(
     cos, sin = cos_t[pos_l], sin_t[pos_l]
     lp = params["layers"]
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    scaled = kv_cache.scaled
     k_new, v_new = [], []
     for i in range(cfg.num_layers):
-        w = {name: t[i] for name, t in lp.items()}
+        w = _layer_weights(lp, i)
         q, kk, vv = _layer_qkv(cfg, w, h, cos, sin)
+        kk_attn, vv_attn, ks_l, vs_l = kk, vv, None, None
+        if scaled:
+            # fake-quantize the in-flight block so that speculative
+            # verification sees EXACTLY the values a commit would store and a
+            # later read would return: MR stays bit-identical to AR / Jacobi
+            ks_l, vs_l = kv_cache.k_scale[i], kv_cache.v_scale[i]
+            kk_attn = dequantize_rows(*quantize_rows(kk, kv_cache.k.dtype), kk.dtype)
+            vv_attn = dequantize_rows(*quantize_rows(vv, kv_cache.v.dtype), vv.dtype)
         o = paged_attention_with_block(
-            q, kv_cache.k[i], kv_cache.v[i], block_tables, cache_lens, kk, vv, intra_mask,
-            scale, page_size=kv_cache.page_size,
+            q, kv_cache.k[i], kv_cache.v[i], block_tables, cache_lens, kk_attn, vv_attn,
+            intra_mask, scale, page_size=kv_cache.page_size, k_scale_l=ks_l, v_scale_l=vs_l,
         )
         h = _layer_out(cfg, w, h, o)
         k_new.append(kk)
@@ -426,21 +463,35 @@ def forward_dense(
     lp = params["layers"]
     h = x
     for i in range(cfg.num_layers):
-        w = {name: t[i] for name, t in lp.items()}
+        w = _layer_weights(lp, i)
         h = checkpoint(layer, h, w, use_reentrant=False) if remat else layer(h, w)
     return rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
 
 
-def _head(params: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
-    """The LM head as [H, V] (a transposed view when tied)."""
+def _head(params: Dict[str, Any], cfg: ModelConfig):
+    """The LM head as [H, V] (a transposed view when tied), or its int8 dict."""
     if cfg.tie_word_embeddings:
         return params["embed"].T
     return params["lm_head"]
 
 
+def _head_logits(cfg: ModelConfig, wq, ws, hidden, hq, acc) -> torch.Tensor:
+    """Logits for one (possibly full) vocab slice of an int8 lm_head.
+    `hq` = (xq, sx) from `act_quantize` when cfg.act_quant, else None."""
+    if hq is not None:
+        xq, sx = hq
+        return int8_matmul(xq, wq).to(acc) * sx.to(acc) * ws.to(acc)[..., 0, :]
+    return _mm_acc(hidden, wq.to(cfg.dtype), acc) * ws.to(acc)[..., 0, :]
+
+
 def logits_at(params: Dict[str, Any], cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
     """LM head over an (already gathered) hidden slice; float32+ logits."""
-    return _mm_acc(hidden, _head(params, cfg).to(cfg.dtype), acc_dtype(cfg.dtype))
+    w = _head(params, cfg)
+    acc = acc_dtype(cfg.dtype)
+    if isinstance(w, dict):  # int8 lm_head, weight-only or W8A8
+        hq = act_quantize(hidden) if cfg.act_quant else None
+        return _head_logits(cfg, w["q"], w["s"], hidden, hq, acc)
+    return _mm_acc(hidden, w.to(cfg.dtype), acc)
 
 
 def greedy_tokens(
@@ -456,11 +507,17 @@ def greedy_tokens(
         return torch.argmax(logits_at(params, cfg, hidden), dim=-1).to(torch.int32)
     acc = acc_dtype(cfg.dtype)
     n_chunks = (V + vocab_chunk - 1) // vocab_chunk
+    quantized = isinstance(w, dict)
+    hq = act_quantize(hidden) if (quantized and cfg.act_quant) else None
     best = torch.full(hidden.shape[:-1], float("-inf"), dtype=acc, device=hidden.device)
     best_idx = torch.zeros(hidden.shape[:-1], dtype=torch.int32, device=hidden.device)
     for c in range(n_chunks):
         start = min(c * vocab_chunk, V - vocab_chunk)
-        logits = _mm_acc(hidden, w[:, start : start + vocab_chunk].to(cfg.dtype), acc)
+        cols = slice(start, start + vocab_chunk)
+        if quantized:
+            logits = _head_logits(cfg, w["q"][:, cols], w["s"][:, cols], hidden, hq, acc)
+        else:
+            logits = _mm_acc(hidden, w[:, cols].to(cfg.dtype), acc)
         cmax = torch.amax(logits, dim=-1)
         carg = torch.argmax(logits, dim=-1)  # first maximum, as jnp.argmax
         take = cmax > best

@@ -20,6 +20,10 @@ over both.  It has the same two implementations
 (`paged_attention_with_block_ref`, `ops/spec_attention_cuda.spec_attention_cuda`
 for csrc/spec_attention.cu) and the same dispatch rule.
 
+A narrow KV cache (fp8 e4m3 / int8, `ops/kv_cache.py`) comes with per-row
+dequant scales `k_scale_l` / `v_scale_l` [KH, num_slots]: every implementation
+reads a stored row as `dequantize_rows` does, in the query dtype.
+
 Left out on purpose (TPU-only): the flat-exp2 softmax, its calibration and
 score guard, the `JF_ATTN_IMPL` / `JF_SPEC_ONLY_T` switches, the `D % 128`
 feasibility gate and head-group tiling, and the serving-mesh shard_map
@@ -28,11 +32,21 @@ dispatch.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from jacobiforcing_tpu_torch.ops.kv_cache import gather_pages
+from jacobiforcing_tpu_torch.ops.kv_cache import dequantize_rows, gather_pages, gather_scales
 
 _NEG_INF = -1e30
+
+
+def gather_dequant(cache_l, scale_l, block_tables, page_size, dtype):
+    """Gather pages as `dtype`; apply the per-row dequant scales when present."""
+    x = gather_pages(cache_l, block_tables, page_size)  # [B, S, KH, D]
+    if scale_l is None:
+        return x.to(dtype)
+    return dequantize_rows(x, gather_scales(scale_l, block_tables, page_size), dtype)
 
 
 def paged_attention_ref(
@@ -45,13 +59,15 @@ def paged_attention_ref(
     scale: float,
     *,
     page_size: int,
+    k_scale_l: Optional[torch.Tensor] = None,  # [KH, num_slots] dequant rows
+    v_scale_l: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version of `paged_attention_xla`: same mask, same dtypes."""
     B, T, NH, D = q.shape
     KH = k_cache_l.shape[0]
     groups = NH // KH
-    k = gather_pages(k_cache_l, block_tables, page_size).to(q.dtype)  # [B,S,KH,D]
-    v = gather_pages(v_cache_l, block_tables, page_size).to(q.dtype)
+    k = gather_dequant(k_cache_l, k_scale_l, block_tables, page_size, q.dtype)  # [B,S,KH,D]
+    v = gather_dequant(v_cache_l, v_scale_l, block_tables, page_size, q.dtype)
     S = k.shape[1]
 
     acc = torch.float64 if q.dtype == torch.float64 else torch.float32
@@ -81,6 +97,8 @@ def paged_attention(
     scale,
     *,
     page_size: int,
+    k_scale_l=None,
+    v_scale_l=None,
 ) -> torch.Tensor:
     """CUDA tensors go to the kernel (which raises on what it cannot serve);
     CPU tensors go to the plain version."""
@@ -89,11 +107,11 @@ def paged_attention(
 
         return paged_attention_cuda(
             q, k_cache_l, v_cache_l, block_tables, cache_lens, positions, scale,
-            page_size=page_size,
+            page_size=page_size, k_scale_l=k_scale_l, v_scale_l=v_scale_l,
         )
     return paged_attention_ref(
         q, k_cache_l, v_cache_l, block_tables, cache_lens, positions, scale,
-        page_size=page_size,
+        page_size=page_size, k_scale_l=k_scale_l, v_scale_l=v_scale_l,
     )
 
 
@@ -109,6 +127,8 @@ def paged_attention_with_block_ref(
     scale: float,
     *,
     page_size: int,
+    k_scale_l: Optional[torch.Tensor] = None,  # [KH, num_slots] dequant rows
+    v_scale_l: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version of the dense path of the JAX `paged_attention_with_block`:
     committed scores masked by `key < cache_len`, in-flight scores by
@@ -120,8 +140,8 @@ def paged_attention_with_block_ref(
     acc = torch.float64 if q.dtype == torch.float64 else torch.float32
     neg = torch.tensor(_NEG_INF, dtype=acc, device=q.device)
 
-    kc = gather_pages(k_cache_l, block_tables, page_size).to(q.dtype)  # [B,S,KH,D]
-    vc = gather_pages(v_cache_l, block_tables, page_size).to(q.dtype)
+    kc = gather_dequant(k_cache_l, k_scale_l, block_tables, page_size, q.dtype)  # [B,S,KH,D]
+    vc = gather_dequant(v_cache_l, v_scale_l, block_tables, page_size, q.dtype)
     S = kc.shape[1]
 
     qg = q.reshape(B, T, KH, groups, D).permute(0, 2, 3, 1, 4).to(acc)  # [B,KH,G,T,D]
@@ -152,6 +172,8 @@ def paged_attention_with_block(
     scale,
     *,
     page_size: int,
+    k_scale_l=None,
+    v_scale_l=None,
 ) -> torch.Tensor:
     """CUDA tensors go to the kernel (which raises on what it cannot serve);
     CPU tensors go to the plain version."""
@@ -160,9 +182,9 @@ def paged_attention_with_block(
 
         return spec_attention_cuda(
             q, k_cache_l, v_cache_l, block_tables, cache_lens, k_new, v_new, intra_mask, scale,
-            page_size=page_size,
+            page_size=page_size, k_scale_l=k_scale_l, v_scale_l=v_scale_l,
         )
     return paged_attention_with_block_ref(
         q, k_cache_l, v_cache_l, block_tables, cache_lens, k_new, v_new, intra_mask, scale,
-        page_size=page_size,
+        page_size=page_size, k_scale_l=k_scale_l, v_scale_l=v_scale_l,
     )

@@ -6,11 +6,18 @@ which is its plain version.  The wrapper checks device, dtype, shape and
 contiguity and raises on anything the kernel does not take; it launches on
 PyTorch's current stream, does not synchronise, and raises if the launch is
 refused.  `paged_attention_cuda.launches` counts its launches.
+
+The cache may be stored narrower than the queries.  Served (query, cache)
+pairs: the cache in the query's type; a bfloat16 cache under float32 queries;
+`torch.float8_e4m3fn` or `torch.int8` under either, and then (and only then)
+with both per-row dequant scale planes `k_scale_l` / `v_scale_l`
+[KH, num_slots], float32, contiguous.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -18,6 +25,13 @@ from jacobiforcing_tpu_torch.ops import _build
 
 SUPPORTED_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2, torch.int8: 3}
+SCALED_CACHE_DTYPES = (torch.float8_e4m3fn, torch.int8)
+# (query dtype, cache dtype) pairs the kernels are built for
+SUPPORTED_PAIRS = frozenset(
+    [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+     (torch.float32, torch.bfloat16)]
+    + [(qd, cd) for qd in _DTYPE_CODES for cd in SCALED_CACHE_DTYPES])
 _FN = None
 
 
@@ -26,8 +40,9 @@ def _kernel():
     if _FN is None:
         lib = _build.load("paged_attention")
         fn = lib.jf_paged_attention
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         lib.jf_error_string.argtypes = [ctypes.c_int]
@@ -36,16 +51,38 @@ def _kernel():
     return _FN
 
 
-def check_inputs(q, k_cache_l, v_cache_l, block_tables, cache_lens, positions, page_size):
+def check_cache_dtype(q, k_cache_l, v_cache_l, k_scale_l, v_scale_l):
+    """Raise ValueError unless (query dtype, cache dtype) is a served pair and
+    the scale planes are there exactly when the cache type needs them.  Shared
+    with the speculative kernel's wrapper."""
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"q dtype {q.dtype} not supported (float32 or bfloat16)")
+    if v_cache_l.dtype != k_cache_l.dtype or (q.dtype, k_cache_l.dtype) not in SUPPORTED_PAIRS:
+        raise ValueError(
+            f"K/V cache dtype {k_cache_l.dtype}/{v_cache_l.dtype} under {q.dtype} queries is not "
+            f"supported: the cache must be stored in the query dtype, as bfloat16 under float32 "
+            f"queries, or as float8_e4m3fn / int8 with per-row scales")
+    scaled = k_cache_l.dtype in SCALED_CACHE_DTYPES
+    if (k_scale_l is None) != (v_scale_l is None):
+        raise ValueError("k_scale_l and v_scale_l must be given together")
+    if scaled != (k_scale_l is not None):
+        raise ValueError(f"a {k_cache_l.dtype} cache "
+                         + ("needs" if scaled else "takes no") + " k_scale_l / v_scale_l")
+    if scaled:
+        want = tuple(k_cache_l.shape[:2])
+        for name, t in (("k_scale_l", k_scale_l), ("v_scale_l", v_scale_l)):
+            if t.dtype != torch.float32 or tuple(t.shape) != want:
+                raise ValueError(f"{name} must be float32 [KH, num_slots] = {want}")
+
+
+def check_inputs(q, k_cache_l, v_cache_l, block_tables, cache_lens, positions, page_size,
+                 k_scale_l=None, v_scale_l=None):
     """Raise ValueError for anything the kernel does not take."""
     if q.dim() != 4 or k_cache_l.dim() != 3 or v_cache_l.dim() != 3:
         raise ValueError("expected q [B, L, NH, D] and k/v caches [KH, num_slots, D]")
     B, L, NH, D = q.shape
     KH, num_slots, Dk = k_cache_l.shape
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"q dtype {q.dtype} not supported (float32 or bfloat16)")
-    if k_cache_l.dtype != q.dtype or v_cache_l.dtype != q.dtype:
-        raise ValueError("the K/V cache dtype must equal the query dtype")
+    check_cache_dtype(q, k_cache_l, v_cache_l, k_scale_l, v_scale_l)
     if D not in SUPPORTED_HEAD_DIMS or Dk != D or tuple(v_cache_l.shape) != (KH, num_slots, D):
         raise ValueError(f"head_dim must be one of {SUPPORTED_HEAD_DIMS} for q, k and v")
     if KH == 0 or NH % KH != 0:
@@ -61,6 +98,8 @@ def check_inputs(q, k_cache_l, v_cache_l, block_tables, cache_lens, positions, p
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
     tensors = (q, k_cache_l, v_cache_l, block_tables, cache_lens, positions)
+    if k_scale_l is not None:
+        tensors += (k_scale_l, v_scale_l)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError("all inputs must be CUDA tensors on one device")
     if not all(t.is_contiguous() for t in tensors):
@@ -79,17 +118,23 @@ def paged_attention_cuda(
     scale: float,
     *,
     page_size: int,
+    k_scale_l: Optional[torch.Tensor] = None,  # [KH, num_slots] float32 dequant rows
+    v_scale_l: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    check_inputs(q, k_cache_l, v_cache_l, block_tables, cache_lens, positions, page_size)
+    check_inputs(q, k_cache_l, v_cache_l, block_tables, cache_lens, positions, page_size,
+                 k_scale_l, v_scale_l)
     fn, err_str = _kernel()
     B, L, NH, D = q.shape
     KH, num_slots, _ = k_cache_l.shape
     out = torch.empty_like(q)
     rc = fn(
-        q.data_ptr(), k_cache_l.data_ptr(), v_cache_l.data_ptr(), block_tables.data_ptr(),
+        q.data_ptr(), k_cache_l.data_ptr(), v_cache_l.data_ptr(),
+        None if k_scale_l is None else k_scale_l.data_ptr(),
+        None if v_scale_l is None else v_scale_l.data_ptr(), block_tables.data_ptr(),
         cache_lens.data_ptr(), positions.data_ptr(), out.data_ptr(),
         B, L, NH, KH, D, block_tables.shape[1], num_slots, page_size, float(scale),
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        _DTYPE_CODES[q.dtype], _CACHE_CODES[k_cache_l.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         msg = "unsupported shape or dtype" if rc < 0 else err_str(rc).decode()

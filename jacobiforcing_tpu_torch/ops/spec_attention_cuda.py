@@ -7,16 +7,26 @@ The wrapper checks device, dtype, shape and contiguity and raises on anything
 the kernel does not take; it launches on PyTorch's current stream, does not
 synchronise, and raises if the launch is refused.
 `spec_attention_cuda.launches` counts its launches.
+
+The committed cache may be stored narrower than the queries, with the pairs
+and the scale planes of `ops/paged_attention_cuda`; the in-flight block always
+comes in the query dtype.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from jacobiforcing_tpu_torch.ops import _build
-from jacobiforcing_tpu_torch.ops.paged_attention_cuda import _DTYPE_CODES, SUPPORTED_HEAD_DIMS
+from jacobiforcing_tpu_torch.ops.paged_attention_cuda import (
+    _CACHE_CODES,
+    _DTYPE_CODES,
+    SUPPORTED_HEAD_DIMS,
+    check_cache_dtype,
+)
 
 _FN = None
 
@@ -26,8 +36,9 @@ def _kernel():
     if _FN is None:
         lib = _build.load("spec_attention")
         fn = lib.jf_spec_attention
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         lib.jf_error_string.argtypes = [ctypes.c_int]
@@ -37,16 +48,15 @@ def _kernel():
 
 
 def check_inputs(q, k_cache_l, v_cache_l, block_tables, cache_lens, k_new, v_new, intra_mask,
-                 page_size):
+                 page_size, k_scale_l=None, v_scale_l=None):
     """Raise ValueError for anything the kernel does not take."""
     if q.dim() != 4 or k_cache_l.dim() != 3 or v_cache_l.dim() != 3:
         raise ValueError("expected q [B, T, NH, D] and k/v caches [KH, num_slots, D]")
     B, T, NH, D = q.shape
     KH, num_slots, Dk = k_cache_l.shape
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"q dtype {q.dtype} not supported (float32 or bfloat16)")
-    if any(t.dtype != q.dtype for t in (k_cache_l, v_cache_l, k_new, v_new)):
-        raise ValueError("the K/V cache and the in-flight K/V dtype must equal the query dtype")
+    check_cache_dtype(q, k_cache_l, v_cache_l, k_scale_l, v_scale_l)
+    if k_new.dtype != q.dtype or v_new.dtype != q.dtype:
+        raise ValueError("the in-flight K/V dtype must equal the query dtype")
     if D not in SUPPORTED_HEAD_DIMS or Dk != D or tuple(v_cache_l.shape) != (KH, num_slots, D):
         raise ValueError(f"head_dim must be one of {SUPPORTED_HEAD_DIMS} for q, k and v")
     if KH == 0 or NH % KH != 0:
@@ -63,6 +73,8 @@ def check_inputs(q, k_cache_l, v_cache_l, block_tables, cache_lens, k_new, v_new
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
     tensors = (q, k_cache_l, v_cache_l, block_tables, cache_lens, k_new, v_new, intra_mask)
+    if k_scale_l is not None:
+        tensors += (k_scale_l, v_scale_l)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError("all inputs must be CUDA tensors on one device")
     if not all(t.is_contiguous() for t in tensors):
@@ -83,18 +95,23 @@ def spec_attention_cuda(
     scale: float,
     *,
     page_size: int,
+    k_scale_l: Optional[torch.Tensor] = None,  # [KH, num_slots] float32 dequant rows
+    v_scale_l: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     check_inputs(q, k_cache_l, v_cache_l, block_tables, cache_lens, k_new, v_new, intra_mask,
-                 page_size)
+                 page_size, k_scale_l, v_scale_l)
     fn, err_str = _kernel()
     B, T, NH, D = q.shape
     KH, num_slots, _ = k_cache_l.shape
     out = torch.empty_like(q)
     rc = fn(
-        q.data_ptr(), k_cache_l.data_ptr(), v_cache_l.data_ptr(), block_tables.data_ptr(),
+        q.data_ptr(), k_cache_l.data_ptr(), v_cache_l.data_ptr(),
+        None if k_scale_l is None else k_scale_l.data_ptr(),
+        None if v_scale_l is None else v_scale_l.data_ptr(), block_tables.data_ptr(),
         cache_lens.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), intra_mask.data_ptr(),
         out.data_ptr(), B, T, NH, KH, D, block_tables.shape[1], num_slots, page_size,
-        float(scale), _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        float(scale), _DTYPE_CODES[q.dtype], _CACHE_CODES[k_cache_l.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         msg = "unsupported shape or dtype" if rc < 0 else err_str(rc).decode()

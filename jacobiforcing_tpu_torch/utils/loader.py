@@ -207,15 +207,27 @@ def assemble_params(
     return params
 
 
+def _map_params(tree, leaf, quantized_leaf):
+    """Map a parameter pytree of any depth: `quantized_leaf` takes a quantized
+    weight (the dict {"q", "s"} of `ops/quant.py`), `leaf` any other array."""
+    if isinstance(tree, dict):
+        if set(tree) == {"q", "s"}:
+            return quantized_leaf(tree)
+        return {k: _map_params(v, leaf, quantized_leaf) for k, v in tree.items()}
+    return leaf(tree)
+
+
 def params_from_numpy(jax_params: Dict[str, Any], dtype=None, device="cpu") -> Dict[str, Any]:
     """The JAX package's parameter pytree (numpy arrays, or anything
     `np.asarray` takes) as the port's parameter dict, same layout.
 
-    `dtype=None` keeps each array's dtype (bfloat16 arrays stay bfloat16).
+    `dtype=None` keeps each array's dtype (bfloat16 arrays stay bfloat16).  A
+    quantized weight {"q", "s"} keeps int8 `q` and bfloat16 `s` whatever
+    `dtype` says.
     """
     dev = resolve_device(device)
 
-    def conv(x) -> torch.Tensor:
+    def conv(x, dtype=dtype) -> torch.Tensor:
         a = np.asarray(x)
         if a.dtype.name == "bfloat16":  # numpy has no bfloat16: go via float32
             t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
@@ -223,10 +235,9 @@ def params_from_numpy(jax_params: Dict[str, Any], dtype=None, device="cpu") -> D
             t = torch.from_numpy(np.array(a))  # a writable copy
         return t.to(device=dev, dtype=dtype or t.dtype)
 
-    return {
-        k: {kk: conv(vv) for kk, vv in v.items()} if isinstance(v, dict) else conv(v)
-        for k, v in jax_params.items()
-    }
+    return _map_params(
+        jax_params, conv,
+        lambda w: {"q": conv(w["q"], torch.int8), "s": conv(w["s"], torch.bfloat16)})
 
 
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
@@ -238,7 +249,4 @@ def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    return {
-        k: {kk: conv(vv) for kk, vv in v.items()} if isinstance(v, dict) else conv(v)
-        for k, v in params.items()
-    }
+    return _map_params(params, conv, lambda w: {"q": conv(w["q"]), "s": conv(w["s"])})

@@ -6,8 +6,13 @@ PyTorch version), in fp64 unless stated.  Tolerance for fp64: 1e-10 abs and
 rel (the two compute the same masked softmax; only summation order differs).
 The Pallas kernel runs in f32 (its supported input types): 2e-5, as in
 tests/test_pallas_attention.py.
+
+A narrow cache (fp8 e4m3 / int8 with per-row scales, K/V magnitudes ~600 so
+that the scales matter) is quantized once by the JAX package; both packages
+then read the same bytes and scales.  Same tolerances, relative to max|ref|.
 """
 
+import jax
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -184,6 +189,104 @@ def test_kernel_wrapper_rejects_cpu_tensors():
         pac.paged_attention_cuda(*args, lens, pos, 0.125, page_size=PAGE)
 
 
+KV_KINDS = {"fp8": (torch.float8_e4m3fn, jnp.float8_e4m3fn), "int8": (torch.int8, jnp.int8)}
+
+
+def scaled_cache(x, kind):
+    """x [KH, slots, D] float32 quantized row by row by the JAX package:
+    ((jax q, jax scale), (torch q, torch scale)) over the same bytes."""
+    tdt, jdt = KV_KINDS[kind]
+    jq_, js = jax.jit(jkv.quantize_rows, static_argnums=1)(jnp.asarray(x), jdt)
+    tq_ = torch.from_numpy(np.asarray(jq_).view(np.uint8).copy()).view(tdt)
+    return (jq_, js), (tq_, torch.from_numpy(np.asarray(js).copy()))
+
+
+def _scaled_inputs(kind, L, lens, dtype, start=None):
+    q, k, v, bt = _inputs(L=L, dtype=np.float32)
+    q = (q / 600.0).astype(dtype)  # scores stay O(1): the softmax is smooth
+    (jk, jks), (tk, tks) = scaled_cache(k * 600, kind)
+    (jv, jvs), (tv, tvs) = scaled_cache(v * 600, kind)
+    lens = np.asarray(lens, np.int32)
+    first = np.asarray(start, np.int32) if start is not None else lens - L
+    pos = first[:, None] + np.arange(L, dtype=np.int32)[None, :]
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    jargs = (jnp.asarray(q), jk, jv, jnp.asarray(bt), jnp.asarray(lens), jnp.asarray(pos), scale)
+    targs = (torch.from_numpy(q), tk, tv, torch.from_numpy(bt), torch.from_numpy(lens),
+             torch.from_numpy(pos), scale)
+    return jargs, dict(k_scale_l=jks, v_scale_l=jvs), targs, dict(k_scale_l=tks, v_scale_l=tvs)
+
+
+@pytest.mark.parametrize("kind", ["fp8", "int8"])
+@pytest.mark.parametrize("L,lens,start", [
+    (4, (37, 80), None), (1, (17, 65), None), (8, (40, 56), (32, 48)),
+])
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-10), (np.float32, 2e-5)])
+def test_scaled_ref_matches_xla(kind, L, lens, start, dtype, tol):
+    jargs, jscales, targs, tscales = _scaled_inputs(kind, L, lens, dtype, start)
+    ref = np.asarray(paged_attention_xla(*jargs, page_size=PAGE, **jscales))
+    out = paged_attention_ref(*targs, page_size=PAGE, **tscales).numpy()
+    assert out.dtype == dtype and np.isfinite(out).all()
+    assert np.abs(out - ref).max() <= tol * np.abs(ref).max()
+    # the dispatcher hands the scales through (CPU tensors: the plain version)
+    assert torch.equal(paged_attention(*targs, page_size=PAGE, **tscales),
+                       paged_attention_ref(*targs, page_size=PAGE, **tscales))
+
+
+@pytest.mark.parametrize("kind", ["fp8", "int8"])
+@pytest.mark.parametrize("L,lens,start", [
+    (4, (37, 80), None), (1, (17, 65), None), (8, (40, 56), (32, 48)),
+])
+def test_scaled_ref_matches_pallas_interpret(kind, L, lens, start):
+    """Against the TPU kernel itself, which folds the K scale into the scores
+    and the V scale into the probabilities (interpret mode, f32): 2e-5."""
+    jargs, jscales, targs, tscales = _scaled_inputs(kind, L, lens, np.float32, start)
+    pallas = np.asarray(paged_attention_pallas(
+        *jargs, page_size=PAGE, interpret=True, softmax="online", **jscales))
+    out = paged_attention_ref(*targs, page_size=PAGE, **tscales).numpy()
+    assert np.abs(out - pallas).max() <= 2e-5 * np.abs(pallas).max()
+
+
+def _wrapper_case(q_dtype, cache_dtype, scales):
+    q = torch.zeros(1, 2, 4, 64, dtype=q_dtype)
+    k = torch.zeros(2, 64, 64, dtype=cache_dtype)
+    s = torch.ones(2, 64, dtype=torch.float32) if scales else None
+    return q, k, k, torch.zeros(1, 4, dtype=torch.int32), torch.ones(1, dtype=torch.int32), \
+        torch.zeros(1, 2, dtype=torch.int32), 16, s, s
+
+
+@pytest.mark.parametrize("q_dtype,cache_dtype", sorted(pac.SUPPORTED_PAIRS, key=str))
+def test_kernel_wrapper_accepts_the_served_dtype_pairs(q_dtype, cache_dtype):
+    """Every served (query, cache) pair passes the dtype and scale checks and
+    ends at the device check (these are CPU tensors)."""
+    scaled = cache_dtype in pac.SCALED_CACHE_DTYPES
+    with pytest.raises(ValueError, match="CUDA"):
+        pac.check_inputs(*_wrapper_case(q_dtype, cache_dtype, scaled))
+
+
+@pytest.mark.parametrize("q_dtype,cache_dtype,scales,match", [
+    (torch.bfloat16, torch.float32, False, "not supported"),
+    (torch.float32, torch.float8_e5m2, True, "not supported"),
+    (torch.float32, torch.float16, False, "not supported"),
+    (torch.float32, torch.int8, False, "needs k_scale_l"),
+    (torch.bfloat16, torch.float8_e4m3fn, False, "needs k_scale_l"),
+    (torch.float32, torch.float32, True, "takes no k_scale_l"),
+    (torch.float32, torch.bfloat16, True, "takes no k_scale_l"),
+])
+def test_kernel_wrapper_rejects_cache_dtypes_and_scales(q_dtype, cache_dtype, scales, match):
+    with pytest.raises(ValueError, match=match):
+        pac.check_inputs(*_wrapper_case(q_dtype, cache_dtype, scales))
+
+
+def test_kernel_wrapper_rejects_malformed_scales():
+    args = list(_wrapper_case(torch.float32, torch.int8, True))
+    with pytest.raises(ValueError, match="together"):
+        pac.check_inputs(*args[:8], None)
+    with pytest.raises(ValueError, match=r"float32 \[KH, num_slots\]"):
+        pac.check_inputs(*args[:7], args[7].double(), args[8])
+    with pytest.raises(ValueError, match=r"float32 \[KH, num_slots\]"):
+        pac.check_inputs(*args[:7], args[7], args[8][:, :32])
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -209,6 +312,34 @@ def test_kernel_matches_plain_on_cuda(cuda, dtype):
     assert torch.isfinite(out).all()
     keep = [0, 2]
     out, ref = out[keep].float(), ref[keep].float()
+    if dtype == torch.float32:
+        limit = 1e-5 * ref.abs().max()
+    else:
+        limit = ref.abs() * 2.0**-5 + ref.abs().amax(-1, keepdim=True) * 2.0**-7
+    assert ((out - ref).abs() <= limit).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fp8", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scaled_kernel_matches_plain_on_cuda(cuda, kind, dtype):
+    """The kernel on a narrow cache with per-row scales vs the plain version
+    on the card (both dequantize in the query dtype); tolerances as above."""
+    q, k, v, bt = _inputs(B=3, L=8, NH=14, KH=2, D=128, num_pages=24, dtype=np.float32)
+    bt[1, :] = -1
+    lens = np.asarray([37, 8, 90], np.int32)
+    pos = (lens - 8)[:, None] + np.arange(8, dtype=np.int32)[None, :]
+    tk, tks = tkv.quantize_rows(torch.from_numpy(k * 600).cuda(), KV_KINDS[kind][0])
+    tv, tvs = tkv.quantize_rows(torch.from_numpy(v * 600).cuda(), KV_KINDS[kind][0])
+    args = [torch.from_numpy(q / 600).cuda().to(dtype), tk, tv]
+    args += [torch.from_numpy(a).cuda() for a in (bt, lens, pos)]
+    kw = dict(page_size=PAGE, k_scale_l=tks, v_scale_l=tvs)
+    before = pac.paged_attention_cuda.launches
+    out = paged_attention(*args, 1.0 / np.sqrt(128), **kw)
+    ref = paged_attention_ref(*args, 1.0 / np.sqrt(128), **kw)
+    torch.cuda.synchronize()
+    assert pac.paged_attention_cuda.launches == before + 1 and torch.isfinite(out).all()
+    out, ref = out[[0, 2]].float(), ref[[0, 2]].float()
     if dtype == torch.float32:
         limit = 1e-5 * ref.abs().max()
     else:

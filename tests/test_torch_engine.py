@@ -79,9 +79,8 @@ def test_bench_generate_demo_anchor(port_llm, tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(quantization="int8"), dict(kv_cache_dtype="fp8"), dict(tensor_parallel_size=2),
-    dict(jacobi_async_host=True), dict(stop_token_ids=(2,)), dict(data_parallel_size=2),
-    dict(kv_cache_dtype="int8"),
+    dict(tensor_parallel_size=2), dict(jacobi_async_host=True), dict(stop_token_ids=(2,)),
+    dict(data_parallel_size=2),
 ])
 def test_unported_config_options_raise(kw):
     with pytest.raises(NotImplementedError):

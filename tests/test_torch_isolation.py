@@ -31,6 +31,13 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_the_quantization_modules_are_covered():
+    """The modules of quantized serving are among the files checked above."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ("quant", "int4_matmul", "int4_matmul_cuda"):
+        assert f"jacobiforcing_tpu_torch/ops/{mod}.py" in names
+
+
 def test_port_process_never_loads_jax():
     code = """
 import sys, torch
@@ -45,6 +52,15 @@ pos = torch.arange(4)[None]
 h, _ = forward(params, cfg, ids, pos, kv, torch.tensor([[0, 1]]), torch.tensor([4]),
                rope_table(cfg))
 assert h.shape == (1, 4, cfg.hidden_size) and bool(torch.isfinite(h).all())
+from jacobiforcing_tpu_torch.ops import int4_matmul, int4_matmul_cuda, quant
+qllm = LLM(device="cpu", model_cfg=cfg, params=quant.init_quantized_params(cfg, 0, "cpu"),
+           num_kv_pages=8, kvcache_page_size=16, max_model_len=64, quantization="w8a8",
+           kv_cache_dtype="fp8")
+out = qllm.generate([[1, 2, 3]], SamplingParams(temperature=0.0, max_tokens=4,
+                                                decode_strategy="jacobi", jacobi_block_len=4))
+assert len(out[0]["token_ids"]) == 4
+wp = int4_matmul.pack_int4(torch.randint(-8, 8, (8, 32), dtype=torch.int8))
+assert int4_matmul.int4_matmul(torch.ones(2, 8), wp, torch.ones(32)).shape == (2, 32)
 import tempfile
 from jacobiforcing_tpu_torch import data
 from jacobiforcing_tpu_torch.train import sft

@@ -271,6 +271,27 @@ def test_port_engine_equals_jax_engine_policy_off(K, pool, chunk_iters):
         assert eng.stats.get(key, 0) == jeng.stats.get(key, 0), key
 
 
+@pytest.mark.parametrize("kw", [
+    dict(quantization="w8a8", kv_cache_dtype="fp8"), dict(quantization="int8", kv_cache_dtype="int8"),
+], ids=lambda kw: "+".join(kw.values()))
+def test_quantized_port_engine_equals_jax_engine_policy_off(kw):
+    """Quantized weights and a scaled KV cache under MR with the policy off:
+    tokens and every iteration / chunk / tier counter equal the JAX engine's,
+    and the stream equals the same engine's AR stream."""
+    prompts = make_prompts(256)
+    kw = dict(jacobi_mr_auto_policy=False, **kw)
+    jeng = jtests.make_engine(**kw)
+    j = jeng.generate(prompts, _mr_sp(24, K=2, pool=4, r=0.5, cls=JSamplingParams))
+    eng = make_engine(**kw)
+    assert eng.kv.scaled and eng.kv.k.dtype != eng.model_cfg.dtype
+    t = eng.generate(prompts, _mr_sp(24, K=2, pool=4, r=0.5))
+    _same(j, t)
+    for key in ("jacobi_iterations", "chunk_calls", "chunk_forwards", "generated_tokens",
+                "mr_full", "mr_nocand", "mr_ra_only"):
+        assert eng.stats.get(key, 0) == jeng.stats.get(key, 0), key
+    _same(t, _ar(prompts, 24, **kw))
+
+
 def test_port_engine_equals_jax_engine_policy_on():
     """Policy on: which arm serves a chunk depends on measured wall times, so
     only the token streams are held equal."""

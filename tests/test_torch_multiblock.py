@@ -7,7 +7,8 @@ same arithmetic in another summation order), and the cache untouched.
 `jacobi_chunk_multiblock`: EVERY key of the returned dict equal (integers and
 bools exactly; the KV cache within 1e-9), chunk after chunk, over block and
 pool counts, batch shapes with a finished row, both chunking modes and an EOS
-inside the accepted region.
+inside the accepted region.  With a narrow cache (fp8 e4m3 / int8 with per-row
+scales) the stored bytes and the scale planes are equal exactly.
 """
 
 import jax
@@ -19,6 +20,7 @@ import torch
 from jacobiforcing_tpu.engine import multiblock as jmb
 from jacobiforcing_tpu.engine import runner as jrunner
 from jacobiforcing_tpu.models import qwen as jq
+from jacobiforcing_tpu.ops import kv_cache as jkv
 from jacobiforcing_tpu_torch.engine import multiblock as tmb
 from jacobiforcing_tpu_torch.engine import runner as trunner
 from jacobiforcing_tpu_torch.models import qwen as tq
@@ -32,15 +34,36 @@ TOL = dict(rtol=1e-9, atol=1e-9)
 STATE_KEYS = tmb.STATE_KEYS
 
 
-def _setup(vocab, num_pages=64, seed=0):
-    """One tiny model in both packages, each with an empty KV cache."""
+KV_KINDS = {"fp8": (torch.float8_e4m3fn, jnp.float8_e4m3fn), "int8": (torch.int8, jnp.int8)}
+
+
+def _setup(vocab, num_pages=64, seed=0, kind=None):
+    """One tiny model in both packages, each with an empty KV cache (stored as
+    `kind`, with per-row scales, when given)."""
     jcfg, jparams, jrope, jkvc = jhelpers.tiny_setup(seed=seed, vocab=vocab, num_pages=num_pages)
     cfg = tq.ModelConfig.tiny(vocab_size=vocab)
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     rope = tuple(torch.from_numpy(np.array(a)) for a in jrope)
+    tdt, jdt = KV_KINDS[kind] if kind else (cfg.dtype, jcfg.dtype)
+    if kind:
+        jkvc = jkv.alloc_kv_cache(jcfg.num_layers, num_pages, PAGE, jcfg.num_kv_heads,
+                                  jcfg.head_dim, jdt)
     kvc = tkv.alloc_kv_cache(cfg.num_layers, num_pages, PAGE, cfg.num_kv_heads, cfg.head_dim,
-                             cfg.dtype, "cpu")
+                             tdt, "cpu")
     return (jcfg, jparams, jrope, jkvc), (cfg, params, rope, kvc)
+
+
+def _assert_cache_equal(kvc, jkvc):
+    """fp64 caches within 1e-9; a scaled cache's bytes and scales exactly."""
+    if not kvc.scaled:
+        np.testing.assert_allclose(kvc.k.numpy(), np.asarray(jkvc.k), **TOL)
+        np.testing.assert_allclose(kvc.v.numpy(), np.asarray(jkvc.v), **TOL)
+        return
+    for got, want in ((kvc.k, jkvc.k), (kvc.v, jkvc.v)):
+        np.testing.assert_array_equal(got.view(torch.uint8).numpy(),
+                                      np.asarray(want).view(np.uint8))
+    np.testing.assert_array_equal(kvc.k_scale.numpy(), np.asarray(jkvc.k_scale))
+    np.testing.assert_array_equal(kvc.v_scale.numpy(), np.asarray(jkvc.v_scale))
 
 
 def _t(a):
@@ -96,17 +119,33 @@ def test_forward_spec_matches_jax_and_writes_nothing():
     assert torch.equal(kvc.k, k_before) and torch.equal(kvc.v, v_before)
 
 
-def test_forward_spec_rejects_a_narrow_kv_cache():
-    """The JAX version fake-quantizes the block for a scaled (fp8/int8) cache;
-    the port has no narrow KV storage yet and says so."""
-    _, (cfg, params, rope, _) = _setup(vocab=32)
-    kvc = tkv.alloc_kv_cache(cfg.num_layers, 4, PAGE, cfg.num_kv_heads, cfg.head_dim,
-                             torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="KV cache"):
-        tq.forward_spec(params, cfg, torch.zeros((1, 2), dtype=torch.int32),
-                        torch.zeros((1, 2), dtype=torch.int32), kvc,
-                        torch.zeros((1, 4), dtype=torch.int32), torch.ones(1, dtype=torch.int32),
-                        torch.ones((1, 2, 2), dtype=torch.bool), rope)
+@pytest.mark.parametrize("kind", ["fp8", "int8"])
+def test_forward_spec_rejects_a_narrow_kv_cache(kind):
+    """A narrow cache is no longer refused: `forward_spec` fake-quantizes the
+    in-flight block as the JAX version does, so its output equals JAX's, the
+    block's K/V come back unquantized, and nothing is written."""
+    jax_side, port_side = _setup(vocab=64, kind=kind)
+    prompts = [[3, 9, 4, 1, 7], [5, 2, 8, 8, 1, 6, 3, 2, 9]]
+    bt = jhelpers.contiguous_block_tables(2, PAGES_PER_SEQ, 64)
+    N = 4
+    jkvc, kvc, _, lens = _prefill_both(jax_side, port_side, prompts, N, bt)
+    _assert_cache_equal(kvc, jkvc)
+    jcfg, jparams, jrope, _ = jax_side
+    cfg, params, rope, _ = port_side
+    r = np.random.RandomState(2)
+    ids = r.randint(0, 64, (2, 2 * N)).astype(np.int32)
+    pos = (lens[:, None] + r.randint(0, N, (2, 2 * N))).astype(np.int32)
+    mask = np.broadcast_to(tmb.tree_mask(N, 2, 0, "cpu").numpy(), (2, 2 * N, 2 * N))
+    bytes_before = kvc.k.view(torch.uint8).clone()
+    jh, jk, jv = jq.forward_spec(
+        jparams, jcfg, jnp.asarray(ids), jnp.asarray(pos), jkvc, jnp.asarray(bt),
+        jnp.asarray(lens), jnp.asarray(mask), jrope)
+    h, k_new, v_new = tq.forward_spec(
+        params, cfg, _t(ids), _t(pos), kvc, _t(bt), _t(lens), _t(mask), rope)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(k_new.numpy(), np.asarray(jk), **TOL)
+    np.testing.assert_allclose(v_new.numpy(), np.asarray(jv), **TOL)
+    assert k_new.dtype == cfg.dtype and torch.equal(kvc.k.view(torch.uint8), bytes_before)
 
 
 def _bootstrap(lens, pf, N, K, C, finished):
@@ -133,10 +172,10 @@ def _bootstrap(lens, pf, N, K, C, finished):
     return st
 
 
-def _run_chunks(K, C, B, chunk_iters, eos_pick, n_chunks=4, N=8, vocab=24, r=0.25):
+def _run_chunks(K, C, B, chunk_iters, eos_pick, n_chunks=4, N=8, vocab=24, r=0.25, kind=None):
     """Drive both packages through `n_chunks` MR chunks from one bootstrap,
     each fed its own previous output; every key must agree after each."""
-    jax_side, port_side = _setup(vocab=vocab)
+    jax_side, port_side = _setup(vocab=vocab, kind=kind)
     jcfg, jparams, jrope, _ = jax_side
     cfg, params, rope, _ = port_side
     rng = np.random.RandomState(7)
@@ -181,8 +220,7 @@ def _run_chunks(K, C, B, chunk_iters, eos_pick, n_chunks=4, N=8, vocab=24, r=0.2
             np.testing.assert_array_equal(got, want, err_msg=f"chunk {chunk}: {key}")
         jkvc = jres["kv"]
         assert tres["kv"] is kvc  # updated in place
-        np.testing.assert_allclose(kvc.k.numpy(), np.asarray(jkvc.k), **TOL)
-        np.testing.assert_allclose(kvc.v.numpy(), np.asarray(jkvc.v), **TOL)
+        _assert_cache_equal(kvc, jkvc)
         tiers_total += np.asarray(jres["tiers"])
         tokens, cur_len = np.asarray(jres["tokens"]), np.asarray(jres["cur_len"])
         for k in STATE_KEYS + ("eos", "iters"):
@@ -200,6 +238,15 @@ def test_chunk_multiblock_equals_jax(K, C, B, chunk_iters):
     if B == 3:
         assert cur_len[2] == lens[2] and st["iters"][2] == 0  # the finished row stayed inert
     assert tiers.sum() > 0
+
+
+@pytest.mark.parametrize("kind", ["fp8", "int8"])
+@pytest.mark.parametrize("K,C,B,chunk_iters", [(2, 4, 3, 0), (3, 2, 1, 2)])
+def test_chunk_multiblock_equals_jax_with_a_scaled_cache(kind, K, C, B, chunk_iters):
+    """The commit of the winner's rows quantizes them and scatters the scales:
+    every dict key, the cache bytes and the scale planes equal JAX's."""
+    st, tokens, cur_len, lens, tiers, _ = _run_chunks(K, C, B, chunk_iters, None, kind=kind)
+    assert (cur_len[: min(B, 2)] > lens[: min(B, 2)]).all() and tiers.sum() > 0
 
 
 @pytest.mark.parametrize("K,C", [(2, 4), (3, 2)])

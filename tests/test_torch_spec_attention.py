@@ -9,13 +9,19 @@ the exact online softmax, and through the port's plain version
 Rows with no visible key at all are left out of the comparison with the TPU
 kernel: it writes zeros there, the dense versions a uniform average, and the
 decoder discards such rows.
+
+With a narrow committed cache (fp8 e4m3 / int8 with per-row scales, K/V
+magnitudes ~600) both packages read the bytes and scales the JAX package
+quantized; the in-flight block stays in the query dtype.  Same tolerances.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from jacobiforcing_tpu.ops import kv_cache as jkv
 from jacobiforcing_tpu.ops.attention import paged_attention_with_block as j_with_block
 from jacobiforcing_tpu.ops.pallas.spec_attention import spec_attention_pallas
 from jacobiforcing_tpu_torch.engine.multiblock import tree_mask
@@ -26,6 +32,16 @@ from jacobiforcing_tpu_torch.ops.attention import (
 )
 
 PAGE = 16
+KV_KINDS = {"fp8": (torch.float8_e4m3fn, jnp.float8_e4m3fn), "int8": (torch.int8, jnp.int8)}
+
+
+def scaled_cache(x, kind):
+    """x [KH, slots, D] float32 quantized row by row by the JAX package:
+    ((jax q, jax scale), (torch q, torch scale)) over the same bytes."""
+    tdt, jdt = KV_KINDS[kind]
+    jq_, js = jax.jit(jkv.quantize_rows, static_argnums=1)(jnp.asarray(x), jdt)
+    tq_ = torch.from_numpy(np.asarray(jq_).view(np.uint8).copy()).view(tdt)
+    return (jq_, js), (tq_, torch.from_numpy(np.asarray(js).copy()))
 
 
 def _case(G, mask_kind, dtype, seed, D=128, KH=2, N=4, K=2, C=2, lens=(37, 0, 80, 1)):
@@ -97,6 +113,72 @@ def test_ref_matches_pallas_interpret(G, mask_kind):
     assert _rel_err(out[seen], pallas[seen]) <= 1e-5
 
 
+def _scaled_case(kind, G, mask_kind, dtype, seed):
+    q, k, v, bt, lens, k_new, v_new, mask = _case(G, mask_kind, np.float32, seed)
+    q = (q / 600.0).astype(dtype)  # scores stay O(1): the softmax is smooth
+    k_new, v_new = (k_new * 600).astype(dtype), (v_new * 600).astype(dtype)
+    (jk, jks), (tk, tks) = scaled_cache(k * 600, kind)
+    (jv, jvs), (tv, tvs) = scaled_cache(v * 600, kind)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    rest = (bt, lens, k_new, v_new, mask)
+    jargs = (jnp.asarray(q), jk, jv) + tuple(jnp.asarray(a) for a in rest) + (scale,)
+    targs = (torch.from_numpy(q), tk, tv) + tuple(torch.from_numpy(a) for a in rest) + (scale,)
+    return (jargs, dict(k_scale_l=jks, v_scale_l=jvs), targs, dict(k_scale_l=tks, v_scale_l=tvs),
+            (lens[:, None] > 0) | mask.any(-1))
+
+
+@pytest.mark.parametrize("kind", ["fp8", "int8"])
+@pytest.mark.parametrize("G,mask_kind", [(1, "tree"), (2, "random"), (7, "tree")])
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-9), (np.float32, 1e-5)])
+def test_scaled_ref_matches_jax_dense(kind, G, mask_kind, dtype, tol):
+    jargs, jscales, targs, tscales, _ = _scaled_case(kind, G, mask_kind, dtype, seed=20 + G)
+    ref = np.asarray(j_with_block(*jargs, page_size=PAGE, **jscales))
+    out = paged_attention_with_block_ref(*targs, page_size=PAGE, **tscales)
+    assert out.numpy().dtype == dtype and np.isfinite(out.numpy()).all()
+    assert _rel_err(out.numpy(), ref) <= tol
+    # the dispatcher hands the scales through (CPU tensors: the plain version)
+    assert torch.equal(paged_attention_with_block(*targs, page_size=PAGE, **tscales), out)
+
+
+@pytest.mark.parametrize("kind", ["fp8", "int8"])
+@pytest.mark.parametrize("G,mask_kind", [(1, "tree"), (2, "random"), (7, "tree")])
+def test_scaled_ref_matches_pallas_interpret(kind, G, mask_kind):
+    """Against the TPU kernel, which folds the committed keys' scales into the
+    scores and the probabilities (interpret mode, online softmax, f32)."""
+    jargs, jscales, targs, tscales, seen = _scaled_case(kind, G, mask_kind, np.float32, 30 + G)
+    pallas = np.asarray(spec_attention_pallas(
+        *jargs, page_size=PAGE, interpret=True, softmax="online", **jscales))
+    out = paged_attention_with_block_ref(*targs, page_size=PAGE, **tscales).numpy()
+    assert seen.any() and np.isfinite(pallas).all()
+    assert _rel_err(out[seen], pallas[seen]) <= 2e-5
+
+
+@pytest.mark.parametrize("q_dtype,cache_dtype,scales,match", [
+    (torch.float32, torch.float8_e4m3fn, True, "CUDA"),
+    (torch.bfloat16, torch.int8, True, "CUDA"),
+    (torch.float32, torch.bfloat16, False, "CUDA"),
+    (torch.bfloat16, torch.float32, False, "not supported"),
+    (torch.float32, torch.int8, False, "needs k_scale_l"),
+    (torch.bfloat16, torch.bfloat16, True, "takes no k_scale_l"),
+])
+def test_kernel_wrapper_cache_dtypes_and_scales(q_dtype, cache_dtype, scales, match):
+    """Served (query, cache) pairs end at the device check (CPU tensors); the
+    rest, and scale planes that are missing or uncalled for, are refused.  The
+    in-flight block must come in the query dtype."""
+    T = 4
+    q = torch.zeros(1, T, 4, 64, dtype=q_dtype)
+    k = torch.zeros(2, 64, 64, dtype=cache_dtype)
+    k_new = torch.zeros(1, T, 2, 64, dtype=q_dtype)
+    sc = torch.ones(2, 64) if scales else None
+    rest = (torch.zeros(1, 4, dtype=torch.int32), torch.ones(1, dtype=torch.int32))
+    mask = torch.zeros(1, T, T, dtype=torch.bool)
+    with pytest.raises(ValueError, match=match):
+        sac.check_inputs(q, k, k, *rest, k_new, k_new, mask, 16, sc, sc)
+    if match == "CUDA":
+        with pytest.raises(ValueError, match="in-flight"):
+            sac.check_inputs(q, k, k, *rest, k_new.to(torch.float16), k_new, mask, 16, sc, sc)
+
+
 def test_dispatch_cpu_takes_plain_version():
     args = [torch.from_numpy(a) for a in _case(2, "tree", np.float32, seed=3)]
     before = sac.spec_attention_cuda.launches
@@ -151,6 +233,34 @@ def test_kernel_matches_plain_on_cuda(cuda, dtype):
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     seen = ((args[4][:, None] > 0) | args[7].any(-1))[:3]
+    out, ref = out[:3][seen].float(), ref[:3][seen].float()
+    if dtype == torch.float32:
+        limit = 1e-5 * ref.abs().max()
+    else:
+        limit = ref.abs() * 2.0**-5 + ref.abs().amax(-1, keepdim=True) * 2.0**-7
+    assert ((out - ref).abs() <= limit).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fp8", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scaled_kernel_matches_plain_on_cuda(cuda, kind, dtype):
+    """The kernel on a narrow committed cache with per-row scales vs the plain
+    version on the card (both dequantize in the query dtype)."""
+    from jacobiforcing_tpu_torch.ops.kv_cache import quantize_rows
+
+    q, k, v, bt, lens, k_new, v_new, mask = [
+        torch.from_numpy(a).cuda() for a in _case(7, "tree", np.float32, seed=5, N=32)]
+    tk, tks = quantize_rows(k * 600, KV_KINDS[kind][0])
+    tv, tvs = quantize_rows(v * 600, KV_KINDS[kind][0])
+    args = ((q / 600).to(dtype), tk, tv, bt, lens, (k_new * 600).to(dtype),
+            (v_new * 600).to(dtype), mask, 1.0 / np.sqrt(128))
+    kw = dict(page_size=PAGE, k_scale_l=tks, v_scale_l=tvs)
+    out = paged_attention_with_block(*args, **kw)
+    ref = paged_attention_with_block_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    seen = ((lens[:, None] > 0) | mask.any(-1))[:3]
     out, ref = out[:3][seen].float(), ref[:3][seen].float()
     if dtype == torch.float32:
         limit = 1e-5 * ref.abs().max()
