@@ -9,11 +9,15 @@ Phases (each prints its lines; any failure exits non-zero and prints no
 result line):
   1. the card's name and power limit; build the CUDA kernels (one nvcc per
      source, started together).
-  2. `kernel`: each serving kernel against its plain PyTorch version, f32 and
+  2. `kernel`: a `[kernel-design]` line per serving kernel (which variants
+     run the tensor-core tile, which the fp32 tile; registers, local bytes
+     and shared memory of each).  Each serving kernel against its plain
+     PyTorch version, f32 and
      bf16, at the demo (D=64, KH=2, G=2) and Qwen2.5-7B (D=128, KH=4, G=7) head
      shapes, with shuffled page tables, ragged lengths and -1 padding rows
      (tolerances in `check`).  The paged-attention kernel: the bitwise
-     AR-row == Jacobi-row check; times at the decode and prefill shapes.  The
+     AR-row == Jacobi-row check; times at the Jacobi-block (B=4, L=64),
+     AR-decode (B=4, L=1) and prefill shapes.  The
      speculative-attention kernel of the multiblock (MR) decoder: T in
      {N, 2N, 6N} in-flight tokens, committed lengths from 0 up, the decoder's
      tree mask with holes and a random mask; bitwise, the RA rows of a T=6N
@@ -278,6 +282,36 @@ def sdpa_ms(c):
     return time_ms(f)
 
 
+def kernel_design():
+    """One `[kernel-design]` line per serving kernel: which (query, cache, D)
+    variants run the tensor-core tile and which the fp32 tile, with the
+    registers, local bytes and shared memory of each (cudaFuncGetAttributes).
+    Fails if a tensor-core variant uses local memory (spills or a stack)."""
+    from jacobiforcing_tpu_torch.ops import paged_attention_cuda as pac
+    from jacobiforcing_tpu_torch.ops import spec_attention_cuda as sac
+
+    short = {"float32": "f32", "bfloat16": "bf16", "float8_e4m3fn": "fp8", "int8": "int8"}
+    for name, variants in (("paged_attention", pac.variants()), ("spec_attention", sac.variants())):
+        parts = []
+        for tcore in (1, 0):
+            vs = [v for v in variants if v["tensor_cores"] == tcore]
+            v0 = vs[0]
+            what = (f"tensor-core tile (wgmma m64n64k16 Q.K^T and m64n<D>k16 P.V, bf16 in, fp32 "
+                    f"accumulate; {v0['key_tile']}-key tiles; {v0['stages']} cp.async K/V stages; "
+                    f"{v0['threads'] // 128} warpgroups of 64 rows per CTA)" if tcore else
+                    f"fp32 CUDA-core tile ({v0['key_tile']}-key tiles, {v0['threads']} threads, "
+                    f"64 rows per CTA)")
+            cells = [f"{short[v['query']]}/{short[v['cache']]} D{v['D']} {v['registers']} regs "
+                     f"{v['local_bytes']} B local {v['static_smem'] + v['dynamic_smem']} B smem"
+                     for v in vs]
+            parts.append(f"{what}: " + ", ".join(cells))
+        log(f"[kernel-design] {name}: " + "; ".join(parts))
+        spilled = [v for v in variants if v["tensor_cores"] and v["local_bytes"]]
+        if spilled or any(v["tensor_cores"] != (v["query"] == "bfloat16") for v in variants):
+            raise AssertionError(f"{name}: a tensor-core variant uses local memory, or a variant "
+                                 f"runs the wrong tile: {spilled}")
+
+
 def phase_kernel(timing):
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     shapes = [("demo", 2, 2, 64, 16), ("qwen7b", 4, 7, 128, 256)]
@@ -346,9 +380,10 @@ def phase_kernel(timing):
                 raise AssertionError("AR row and Jacobi row differ bitwise")
 
     # times at the main path's shapes (Qwen2.5-7B heads, bf16, page 256), with
-    # a bf16 cache and with an fp8 cache
-    times = {"decode": (4, 64, 1024, None), "prefill": (1, 1024, 1024, None),
-             "decode_fp8": (4, 64, 1024, "fp8"), "prefill_fp8": (1, 1024, 1024, "fp8")}
+    # a bf16 cache and with an fp8 cache: a Jacobi block, AR decode, prefill
+    times = {"decode": (4, 64, 1024, None), "ar_decode": (4, 1, 1024, None),
+             "prefill": (1, 1024, 1024, None), "decode_fp8": (4, 64, 1024, "fp8"),
+             "ar_decode_fp8": (4, 1, 1024, "fp8"), "prefill_fp8": (1, 1024, 1024, "fp8")}
     for name, (B, L, ctx, kv) in times.items():
         c = make_case(B, L, 4, 7, 128, 256, ctx, torch.bfloat16, seed=2000, full=True, kv=kv)
         ms = time_ms(lambda: run_kernel(c))
@@ -527,9 +562,11 @@ def two_sources_check():
     """The MR decoder sees a key twice: in flight, fake-quantized by
     `forward_spec`, and later committed, dequantized inside the kernels.  Both
     must be the same bits.  With the committed length a multiple of the key
-    tile (32) the two kernels walk the same keys in the same tiles, so the rows
-    of a speculative call over [committed | causal block] must equal, bit for
-    bit, the rows of a paged call after the block's rows were committed."""
+    tile (32 keys in the fp32 tile, 64 in the tensor-core tile: the committed
+    length 256 is a multiple of both) the two kernels walk the same keys in the
+    same tiles, so the rows of a speculative call over [committed | causal
+    block] must equal, bit for bit, the rows of a paged call after the block's
+    rows were committed."""
     from jacobiforcing_tpu_torch.ops.kv_cache import (
         dequantize_rows, quantize_rows, write_kv_scaled)
 
@@ -1797,6 +1834,7 @@ def main() -> int:
         return out
 
     if "kernel" in phases:
+        kernel_design()
         run("kernel (paged attention)", phase_kernel, timing)
         run("kernel (speculative attention)", phase_spec_kernel, timing)
         run("kernel (int4 matmul)", phase_int4_kernel, timing)

@@ -33,6 +33,36 @@ SUPPORTED_PAIRS = frozenset(
      (torch.float32, torch.bfloat16)]
     + [(qd, cd) for qd in _DTYPE_CODES for cd in SCALED_CACHE_DTYPES])
 _FN = None
+# what the `jf_*_attrs` C functions report for one variant, in order
+_ATTR_FIELDS = ("tensor_cores", "registers", "local_bytes", "static_smem", "dynamic_smem",
+                "threads", "key_tile", "stages")
+
+
+def kernel_variants(lib, fn_name):
+    """One dict per built (query, cache, D) variant of a kernel library: which
+    tile it runs (tensor cores or the fp32 CUDA-core tile), its registers and
+    local (stack or spilled) bytes per thread, static and dynamic shared
+    memory and threads per CTA, keys per tile and K/V stages.  Needs the
+    card."""
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rows = []
+    for qd, cd in sorted(SUPPORTED_PAIRS, key=str):
+        for D in SUPPORTED_HEAD_DIMS:
+            buf = (ctypes.c_int * len(_ATTR_FIELDS))()
+            rc = fn(_DTYPE_CODES[qd], _CACHE_CODES[cd], D, buf)
+            if rc != 0:
+                raise RuntimeError(f"{fn_name}({qd}, {cd}, {D}) failed ({rc})")
+            rows.append(dict(query=str(qd).replace("torch.", ""),
+                             cache=str(cd).replace("torch.", ""), D=D,
+                             **dict(zip(_ATTR_FIELDS, buf))))
+    return rows
+
+
+def variants():
+    """`kernel_variants` of csrc/paged_attention.cu."""
+    return kernel_variants(_build.load("paged_attention"), "jf_paged_attention_attrs")
 
 
 def _kernel():

@@ -26,9 +26,15 @@ from jacobiforcing_tpu_torch.ops.paged_attention_cuda import (
     _DTYPE_CODES,
     SUPPORTED_HEAD_DIMS,
     check_cache_dtype,
+    kernel_variants,
 )
 
 _FN = None
+
+
+def variants():
+    """`kernel_variants` of csrc/spec_attention.cu."""
+    return kernel_variants(_build.load("spec_attention"), "jf_spec_attention_attrs")
 
 
 def _kernel():

@@ -23,7 +23,11 @@ from jacobiforcing_tpu.ops.attention import paged_attention_xla
 from jacobiforcing_tpu.ops.pallas.paged_attention import paged_attention_pallas
 from jacobiforcing_tpu_torch.ops import kv_cache as tkv
 from jacobiforcing_tpu_torch.ops import paged_attention_cuda as pac
-from jacobiforcing_tpu_torch.ops.attention import paged_attention, paged_attention_ref
+from jacobiforcing_tpu_torch.ops.attention import (
+    gather_dequant,
+    paged_attention,
+    paged_attention_ref,
+)
 
 PAGE = 16
 TOL64 = dict(rtol=1e-10, atol=1e-10)
@@ -345,3 +349,116 @@ def test_scaled_kernel_matches_plain_on_cuda(cuda, kind, dtype):
     else:
         limit = ref.abs() * 2.0**-5 + ref.abs().amax(-1, keepdim=True) * 2.0**-7
     assert ((out - ref).abs() <= limit).all()
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core tile's numerics (csrc/attention_tile.cuh, namespace tc),
+# emulated tile by tile on the CPU and held to the plain version under
+# chip_smoke.check's bf16 rule before any card time is spent on them.
+# ---------------------------------------------------------------------------
+
+
+def tc_tile_emulation(q, segments, scale):
+    """The bf16-query kernels' arithmetic in plain torch: q [B, T, NH, D]
+    bf16; `segments` is a list of (k, v [B, S, KH, D] bf16, vis [B, T, S]
+    bool) walked in order, each in 64-key tiles from its key 0 (the paged
+    kernel has one segment, the speculative kernel the committed keys then
+    the in-flight block).  Per tile: bf16 Q.K products summed in float32,
+    the row max over the raw scores, scaled into the log2 domain, an online
+    softmax with exp2 (of one fused multiply-add on the card), the
+    probabilities rounded to bf16 before P.V, float32 accumulation; rows that
+    see no key give zeros."""
+    B, T, NH, D = q.shape
+    KH = segments[0][0].shape[2]
+    qf = q.float().reshape(B, T, KH, NH // KH, D).permute(0, 2, 3, 1, 4)  # [B,KH,G,T,D]
+    m = torch.full(qf.shape[:-1], -float("inf"))
+    l = torch.zeros(qf.shape[:-1])
+    o = torch.zeros(qf.shape)
+    c = torch.tensor(scale, dtype=torch.float32) * torch.tensor(1.4426950408889634,
+                                                                  dtype=torch.float32)
+    for k, v, vis in segments:
+        for j0 in range(0, k.shape[1], 64):
+            kt = k[:, j0:j0 + 64].float().permute(0, 2, 1, 3)[:, :, None]  # [B,KH,1,t,D]
+            vt = v[:, j0:j0 + 64].float().permute(0, 2, 1, 3)[:, :, None]
+            s = qf @ kt.transpose(-1, -2)
+            s = torch.where(vis[:, None, None, :, j0:j0 + 64], s, -float("inf"))
+            m_new = torch.maximum(m, s.amax(-1) * c)
+            base = torch.where(m_new == -float("inf"), torch.zeros(()), m_new)
+            alpha = torch.exp2(m - base)
+            p = torch.exp2(s * c - base[..., None])
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + p.bfloat16().float() @ vt
+            m = m_new
+    out = torch.where(l[..., None] > 0, o / l.clamp(min=1e-30)[..., None], torch.zeros(()))
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, NH, D).bfloat16()
+
+
+def bf16_rule(out, ref):
+    """chip_smoke.check's bf16 rule: per element |err| <= 2^-5 |ref| +
+    2^-7 max|ref| of its row."""
+    out, ref = out.float(), ref.float()
+    tol = ref.abs() * 2.0**-5 + ref.abs().amax(-1, keepdim=True) * 2.0**-7
+    return bool(torch.isfinite(out).all()) and bool(((out - ref).abs() <= tol).all())
+
+
+def _long_context_case(KH, G, D, kind, L, lens, seed):
+    """bf16 queries over a paged cache of ctx up to 1024 (page 16, shuffled
+    pages): (q, k, v, bt, lens, pos, k_scale, v_scale) as torch tensors; with
+    `kind` the cache is stored narrow at magnitudes ~600 with row scales."""
+    r = np.random.RandomState(seed)
+    B = len(lens)
+    pages = [-(-n // PAGE) for n in lens]
+    num_pages = sum(pages) + 3
+    perm, o = r.permutation(num_pages), 0
+    bt = np.full((B, max(pages)), -1, np.int32)
+    for b, n in enumerate(pages):
+        bt[b, :n], o = perm[o:o + n], o + n
+    q = torch.from_numpy(r.randn(B, L, KH * G, D).astype(np.float32))
+    k = torch.from_numpy(r.randn(KH, num_pages * PAGE, D).astype(np.float32))
+    v = torch.from_numpy(r.randn(KH, num_pages * PAGE, D).astype(np.float32))
+    ks = vs = None
+    if kind is None:
+        k, v = k.bfloat16(), v.bfloat16()
+    else:
+        q = q / 600.0
+        k, ks = tkv.quantize_rows(k * 600.0, KV_KINDS[kind][0])
+        v, vs = tkv.quantize_rows(v * 600.0, KV_KINDS[kind][0])
+    lens = np.asarray(lens, np.int32)
+    pos = (lens - L)[:, None] + np.arange(L, dtype=np.int32)[None, :]
+    return (q.bfloat16(), k, v, torch.from_numpy(bt), torch.from_numpy(lens),
+            torch.from_numpy(pos), ks, vs)
+
+
+@pytest.mark.parametrize("KH,G,D", [(2, 2, 64), (4, 7, 128)])  # demo heads, Qwen2.5-7B heads
+@pytest.mark.parametrize("kind", [None, "fp8"])
+def test_tensor_core_tile_numerics_within_the_bf16_rule(KH, G, D, kind):
+    """64-key tiles, bf16 products summed in f32, P rounded to bf16 before
+    P.V, f32 accumulation: within chip_smoke.check's bf16 rule of
+    `paged_attention_ref` at ctx up to 1024, bf16 and fp8 caches."""
+    q, k, v, bt, lens, pos, ks, vs = _long_context_case(KH, G, D, kind, 4, (1024, 300), seed=D)
+    scale = 1.0 / np.sqrt(D)
+    ref = paged_attention_ref(q, k, v, bt, lens, pos, scale, page_size=PAGE, k_scale_l=ks,
+                              v_scale_l=vs)
+    kd = gather_dequant(k, ks, bt, PAGE, torch.bfloat16)
+    vd = gather_dequant(v, vs, bt, PAGE, torch.bfloat16)
+    key = torch.arange(kd.shape[1])
+    vis = (key[None, None, :] <= pos[:, :, None]) & (key[None, None, :] < lens[:, None, None])
+    out = tc_tile_emulation(q, [(kd, vd, vis)], scale)
+    assert bf16_rule(out, ref)
+
+
+@pytest.mark.cuda
+def test_bf16_ar_row_equals_jacobi_row_bitwise_on_cuda(cuda):
+    """The tensor-core tile: a query's row from an L=1 call equals, bit for
+    bit, its row inside an L=64 block (Qwen2.5-7B heads, bf16 cache)."""
+    q, k, v, bt, lens, pos, _, _ = _long_context_case(4, 7, 128, None, 64, (1000, 700), seed=7)
+    q, k, v, bt, lens, pos = [t.cuda() for t in (q, k, v, bt, lens, pos)]
+    scale = 1.0 / np.sqrt(128)
+    block = paged_attention(q, k, v, bt, lens, pos, scale, page_size=PAGE)
+    for b, t in ((0, 0), (0, 33), (1, 63)):
+        p = int(pos[b, t])
+        row = paged_attention(q[b:b + 1, t:t + 1].contiguous(), k, v, bt[b:b + 1].contiguous(),
+                              torch.tensor([p + 1], dtype=torch.int32, device="cuda"),
+                              torch.tensor([[p]], dtype=torch.int32, device="cuda"), scale,
+                              page_size=PAGE)
+        assert torch.equal(row[0, 0].view(torch.int16), block[b, t].view(torch.int16))

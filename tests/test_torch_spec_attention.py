@@ -267,3 +267,80 @@ def test_scaled_kernel_matches_plain_on_cuda(cuda, kind, dtype):
     else:
         limit = ref.abs() * 2.0**-5 + ref.abs().amax(-1, keepdim=True) * 2.0**-7
     assert ((out - ref).abs() <= limit).all()
+
+
+def _long_context_case(KH, G, D, kind, N, K, C, lens, seed):
+    """bf16 queries over committed keys up to ctx 1024 (page 16, shuffled
+    pages) and an in-flight block of T = (1+C+K-1)*N tokens under the
+    decoder's tree mask with holes.  With `kind` the committed cache is stored
+    narrow at magnitudes ~600 with row scales, and the in-flight block is
+    fake-quantized in bf16 as `forward_spec` does it."""
+    from jacobiforcing_tpu_torch.ops.kv_cache import dequantize_rows, quantize_rows
+
+    r = np.random.RandomState(seed)
+    B, T = len(lens), (1 + C + K - 1) * N
+    pages = [-(-n // PAGE) for n in lens]
+    num_pages = sum(pages) + 3
+    perm, o = r.permutation(num_pages), 0
+    bt = np.full((B, max(max(pages), 1)), -1, np.int32)
+    for b, n in enumerate(pages):
+        bt[b, :n], o = perm[o:o + n], o + n
+    f = lambda *shape: torch.from_numpy(r.randn(*shape).astype(np.float32))
+    q, k, v, k_new, v_new = (f(B, T, KH * G, D), f(KH, num_pages * PAGE, D),
+                             f(KH, num_pages * PAGE, D), f(B, T, KH, D), f(B, T, KH, D))
+    tok_valid = r.rand(B, T) < 0.8
+    tok_valid[:, 0] = True
+    mask = tree_mask(N, K, C, "cpu")[None] & torch.from_numpy(
+        tok_valid[:, :, None] & tok_valid[:, None, :])
+    ks = vs = None
+    if kind is None:
+        k, v, k_new, v_new = k.bfloat16(), v.bfloat16(), k_new.bfloat16(), v_new.bfloat16()
+    else:
+        q = q / 600.0
+        store = KV_KINDS[kind][0]
+        k, ks = quantize_rows(k * 600.0, store)
+        v, vs = quantize_rows(v * 600.0, store)
+        k_new = dequantize_rows(*quantize_rows(k_new * 600.0, store), torch.bfloat16)
+        v_new = dequantize_rows(*quantize_rows(v_new * 600.0, store), torch.bfloat16)
+    return (q.bfloat16(), k, v, torch.from_numpy(bt), torch.tensor(lens, dtype=torch.int32),
+            k_new, v_new, mask), dict(page_size=PAGE, k_scale_l=ks, v_scale_l=vs)
+
+
+@pytest.mark.parametrize("KH,G,D", [(2, 2, 64), (4, 7, 128)])  # demo heads, Qwen2.5-7B heads
+@pytest.mark.parametrize("kind", [None, "fp8"])
+def test_tensor_core_tile_numerics_within_the_bf16_rule(KH, G, D, kind):
+    """The bf16-query kernel's arithmetic (tests/test_torch_attention.py::
+    tc_tile_emulation: the committed keys in 64-key tiles, then the in-flight
+    block in 64-key tiles, one online softmax, P rounded to bf16 before P.V)
+    within chip_smoke.check's bf16 rule of `paged_attention_with_block_ref`,
+    committed lengths up to 1024, bf16 and fp8 caches; rows that see a key."""
+    from jacobiforcing_tpu_torch.ops.attention import gather_dequant
+    from tests.test_torch_attention import bf16_rule, tc_tile_emulation
+
+    args, kw = _long_context_case(KH, G, D, kind, 16, 2, 4, (1024, 0, 517), seed=D)
+    q, k, v, bt, lens, k_new, v_new, mask = args
+    scale = 1.0 / np.sqrt(D)
+    ref = paged_attention_with_block_ref(*args, scale, **kw)
+    kd = gather_dequant(k, kw["k_scale_l"], bt, PAGE, torch.bfloat16)
+    vd = gather_dequant(v, kw["v_scale_l"], bt, PAGE, torch.bfloat16)
+    committed = (torch.arange(kd.shape[1])[None, :] < lens[:, None])[:, None, :]
+    out = tc_tile_emulation(q, [(kd, vd, committed.expand(-1, q.shape[1], -1)),
+                                (k_new, v_new, mask)], scale)
+    seen = (lens[:, None] > 0) | mask.any(-1)
+    assert bf16_rule(out[seen], ref[seen])
+
+
+@pytest.mark.cuda
+def test_bf16_ra_rows_of_6n_equal_n_bitwise_on_cuda(cuda):
+    """The tensor-core tile: the RA rows of a T=6N call equal, bit for bit,
+    the rows of a T=N call on the same sequences (Qwen2.5-7B heads, N 32)."""
+    args, kw = _long_context_case(4, 7, 128, None, 32, 2, 4, (1000, 0, 300), seed=11)
+    args = [a.cuda() for a in args]
+    q, k, v, bt, lens, k_new, v_new, mask = args
+    scale = 1.0 / np.sqrt(128)
+    big = paged_attention_with_block(*args, scale, **kw)
+    n = 32
+    ra = paged_attention_with_block(q[:, :n].contiguous(), k, v, bt, lens,
+                                    k_new[:, :n].contiguous(), v_new[:, :n].contiguous(),
+                                    mask[:, :n, :n].contiguous(), scale, **kw)
+    assert torch.equal(big[:, :n].view(torch.int16), ra.view(torch.int16))
