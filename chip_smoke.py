@@ -5,6 +5,10 @@
 
     python3 chip_smoke.py kernel,train_kernel   # the kernels against their plain versions only
 
+    # the same phases from a parent tree (P) and this one (C) in turns, P C C P,
+    # on one card: training kernel times, steps/s and step profiles side by side
+    python3 chip_smoke.py compare build/parent train_kernel,train
+
 Phases (each prints its lines; any failure exits non-zero and prints no
 result line):
   1. the card's name and power limit; build the CUDA kernels (one nvcc per
@@ -33,14 +37,19 @@ result line):
      at M = 4 / 256 / 1536 (tolerances in `check_int4`), its times beside the
      bound and a bf16 GEMM on the pre-dequantized weight, and its path: one
      decoder layer's seven linear layers through the dispatcher.
-  3. `train_kernel`: the training-attention kernels (forward, dQ, dK/dV)
-     against the plain version under autograd in float32: f32 and bf16, both
+  3. `train_kernel`: a `[kernel-design]` line of the training kernels (bf16
+     forward and dK/dV on tensor cores, the rest on the fp32 tile; registers,
+     local bytes, shared memory; it fails on local memory in a new bf16
+     variant or a variant on the wrong tile).  The training-attention kernels
+     (forward, dQ, dK/dV) against the plain version under autograd in float32: f32 and bf16, both
      head shapes, the three mask variants, rows shorter than their bucket, T
      below the pairs the row holds, prompt lengths off every tile edge, N
      16/32/64 (tolerances in `check` and `check_grad`); gradients bitwise equal
      across two runs; rows that see nothing zero.  Times at L 4096 and
      L 16384 (Qwen2.5-7B heads, bf16), each kernel beside its bound, the plain
      version and SDPA under a dense boolean mask, forward and backward.
+     `compare PARENT PHASES` runs the phases from a parent tree and this one
+     in turns and prints their times, steps/s and step profiles side by side.
   4. `demo`: the trained demo checkpoint `assets/tpf_demo_n32_v7` in f32
      through `LLM` and the port's `bench_generate.run`: `ar`, `jacobi` and
      `mr` (auto-policy off, then on) on all 64 held-out prompts.  All token
@@ -935,10 +944,37 @@ def train_bounds(c):
     return out
 
 
+def train_kernel_design():
+    """The `[kernel-design]` line of the training kernels: which tile each
+    (kernel, dtype, D) variant runs, with its registers, local bytes and
+    shared memory.  Fails unless bf16 runs the tensor-core forward and dK/dV
+    (and the fp32 dQ), float32 the fp32 kernels, and unless every bf16
+    variant of the forward and dK/dV (the reduce kernel included) uses no
+    local memory."""
+    from jacobiforcing_tpu_torch.ops import train_attention_cuda as tac
+
+    variants = tac.variants()
+    short = {"float32": "f32", "bfloat16": "bf16"}
+    cells = [f"{v['kernel']} {short[v['dtype']]} D{v['D']} "
+             f"{'tensor cores' if v['tensor_cores'] else 'fp32 tile'} {v['key_tile']}-key tiles "
+             f"{v['threads']} threads {v['stages']} stages {v['registers']} regs "
+             f"{v['local_bytes']} B local {v['static_smem'] + v['dynamic_smem']} B smem"
+             for v in variants]
+    log("[kernel-design] train_attention: " + "; ".join(cells))
+    wrong = [v for v in variants
+             if v["tensor_cores"] != (v["dtype"] == "bfloat16" and v["kernel"] in ("fwd", "dkdv"))
+             or (v["dtype"] == "bfloat16" and v["kernel"] != "dq" and v["local_bytes"])]
+    if wrong or not any(v["kernel"] == "dkdv_reduce" for v in variants):
+        raise AssertionError(f"train_attention: a variant runs the wrong tile or a new bf16 "
+                             f"variant uses local memory: {wrong}")
+
+
 def phase_train_kernel(timing):
     from jacobiforcing_tpu_torch.ops import train_attention_cuda as tac
     from jacobiforcing_tpu_torch.ops.train_attention import (
         train_attention, train_attention_ref, train_mask)
+
+    train_kernel_design()
 
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     shapes = [("demo", 2, 2, 64), ("qwen7b", 4, 7, 128)]
@@ -1036,10 +1072,13 @@ def phase_train_kernel(timing):
             f"forward+backward {lib_fb:.3f} ms; kernel out vs sdpa err/tol {w_lib:.3f}"
             + "".join(f", {k_} vs f32 plain err/tol {r[1]:.3f}" for k_, r in errs.items())
             + f" {'ok' if ok else 'FAIL'}")
+        beside = {"train_attention_fwd": f"sdpa forward {lib_f:.3f} ms",
+                  "train_attention_dkdv": f"sdpa forward+backward {lib_fb:.3f} ms",
+                  "train_attention_dq": f"sdpa forward+backward {lib_fb:.3f} ms"}
         for kname, t in ms.items():
             bms, by = bounds[kname]
             log(f"[train-kernel-time]   {kname}: {t:.3f} ms, bound {bms:.4f} ms ({by}), "
-                f"{bms / t * 100:.2f}% of bound")
+                f"{bms / t * 100:.2f}% of bound; {beside[kname]}")
         log(f"[train-kernel-time]   backward (delta + dQ + dK/dV) "
             f"{ms['train_attention_dq'] + ms['train_attention_dkdv']:.3f} ms, "
             f"forward+backward {sum(ms.values()):.3f} ms")
@@ -1799,7 +1838,83 @@ def phase_train(counter, launches_out, params=None):
     phase_train_full(counter, launches_out, params)
 
 
+COMPARE_PATTERNS = {
+    # [train-kernel-time] L=4096 ...: sdpa forward X ms, forward+backward Y ms
+    "sdpa": r"\[train-kernel-time\] L=(\d+) .*sdpa forward ([\d.]+) ms, forward\+backward ([\d.]+)",
+    # [train-kernel-time]   train_attention_fwd: X ms, bound Y ms
+    "kernel": r"\[train-kernel-time\]\s+(train_attention_\w+): ([\d.]+) ms, bound ([\d.]+) ms",
+    "steps": r"\[train-full\] .*steady ([\d.]+) steps/s = ([\d.]+) tokens/s",
+    "step_ms": r"\[train-profile\] one step under the profiler: ([\d.]+) ms .*device busy "
+               r"([\d.]+) ms",
+    "group": r"\[train-profile\]\s+([^:]+\)|GEMM \(cuBLAS\)|AdamW \(fused\)|other): "
+             r"([\d.]+) ms \(([\d.]+)% of device time\)",
+}
+
+
+def compare(parent: str, phases: str = "train_kernel,train", order: str = "PCCP",
+            log_dir: str = "build/compare") -> int:
+    """Run `chip_smoke.py <phases>` from the parent tree (P) and from this
+    tree (C) in turns, each in a process of its own on the same card, and
+    print the training kernels' times, the full-width steps/s and the step
+    profile of every run side by side.  Each run's whole output goes to
+    <log_dir>/compare-<n>-<P|C>.log (log_dir relative to this tree)."""
+    import re
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                       capture_output=True, text=True).stdout.strip())
+    trees = {"P": os.path.abspath(parent), "C": REPO}
+    out_dir = os.path.join(REPO, log_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    rows = []
+    for n, tag in enumerate(order):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "chip_smoke.py", phases], cwd=trees[tag],
+                              capture_output=True, text=True)
+        text = proc.stdout + proc.stderr
+        with open(os.path.join(out_dir, f"compare-{n}-{tag}.log"), "w") as f:
+            f.write(text)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            log(f"[compare] run {n} ({tag}, {trees[tag]}) failed (rc {proc.returncode}) after "
+                f"{wall:.1f}s:\n{text[-3000:]}")
+            return 1
+        got = {name: re.findall(pat, text) for name, pat in COMPARE_PATTERNS.items()}
+        rows.append((n, tag, got))
+        log(f"[compare] run {n}: {'parent' if tag == 'P' else 'change'} {trees[tag]}, "
+            f"{wall:.1f}s")
+        # kernel lines follow their L's sdpa line, in order
+        for (L, f_ms, fb_ms), i in zip(got["sdpa"], range(0, 3 * len(got["sdpa"]), 3)):
+            parts = [f"{k} {float(ms):.3f} ms (bound {float(b):.4f})"
+                     for k, ms, b in got["kernel"][i:i + 3]]
+            log(f"[compare]   {tag} L={L}: " + ", ".join(parts)
+                + f"; sdpa forward {f_ms} ms, forward+backward {fb_ms} ms")
+        for sps, tps in got["steps"]:
+            log(f"[compare]   {tag} full-width training: {sps} steps/s, {tps} tokens/s")
+        for step_ms, busy in got["step_ms"]:
+            log(f"[compare]   {tag} profiled step {step_ms} ms, device busy {busy} ms")
+        for g, ms, share in got["group"]:
+            log(f"[compare]   {tag}   {g}: {ms} ms ({share}% of device time)")
+    # every run's numbers of one kind side by side: parent runs, then change runs
+    table = {}
+    for _, tag, got in rows:
+        for (L, *_), i in zip(got["sdpa"], range(0, 3 * len(got["sdpa"]), 3)):
+            for kname, ms, _ in got["kernel"][i:i + 3]:
+                table.setdefault(f"{kname} L={L} ms", {}).setdefault(tag, []).append(ms)
+        for sps, _ in got["steps"]:
+            table.setdefault("full-width training steps/s", {}).setdefault(tag, []).append(sps)
+    for what, by_tag in table.items():
+        log(f"[compare] {what}: parent {', '.join(by_tag.get('P', []))}; change "
+            f"{', '.join(by_tag.get('C', []))}")
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == "compare":
+        # python3 chip_smoke.py compare PARENT_TREE PHASES [ORDER [LOG_DIR]]
+        return compare(sys.argv[2], *sys.argv[3:6])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2

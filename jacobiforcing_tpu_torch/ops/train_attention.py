@@ -13,7 +13,9 @@ past pair `T` see and are seen by nothing.
   * `masked_attention` / `train_attention_ref`: the plain version, a dense
     masked softmax in torch ops with autograd.  CPU tensors take it.
   * `classify_tiles`: which (query tile, key tile) pairs are empty, partial or
-    full, worked out on the host from the layout scalars in O(L * L / 32).
+    full, worked out on the host from the layout scalars in O(L * L / key
+    tile), for 32-key tiles (the fp32 kernels, bf16 dQ) or 64-key tiles (the
+    bf16 tensor-core forward and dK/dV), with the lists each kernel walks.
   * `train_attention`: the dispatcher.  A CUDA tensor always takes the
     hand-written kernels (csrc/train_attention.cu: forward, dQ, dK/dV) through
     a `torch.autograd.Function`, and what they cannot serve raises.
@@ -35,7 +37,24 @@ import torch
 
 VARIANTS = ("single", "multiblock", "window")
 Q_ROWS = 64  # query rows (token-major (token, head-in-group) pairs) per query tile
-KEY_TILE = 32  # keys per key tile
+KEY_TILE = 32  # keys per key tile of the fp32 kernels and of bf16 dQ
+TC_KEY_TILE = 64  # keys per key tile of the bf16 tensor-core forward and dK/dV
+# The bf16 dK/dV kernel runs one CTA per (key tile, KV head, chunk of at most
+# C query tiles).  C = max(DKDV_MIN_CHUNK, ceil(E / DKDV_CHUNKS)), E the
+# non-empty (key tile, query tile) pairs of the layout: about DKDV_CHUNKS
+# chunks per KV head, so the longest CTA does about the mean work whatever the
+# layout (a prompt key tile is seen by every query tile, a k_j tile under
+# `single` by the few of its own block).  256 chunks per head give 1024 CTAs
+# at 4 KV heads, about four waves of the H100's 132 SMs at two CTAs each: the
+# tail is a fraction of a wave, and each chunk runs enough query tiles to hide
+# its K/V load and its fp32 partial write.  Cut into near-equal chunks and
+# launched longest first, the trainer's `single` rows give a longest / mean
+# chunk of 57 / 50.7 query tiles at L 4096 and 896 / 600 at L 16384 (where
+# many key tiles have a single list shorter than C).  C depends on the layout
+# only, so the summation order, and the gradients' bits, do not depend on the
+# card.
+DKDV_CHUNKS = 256
+DKDV_MIN_CHUNK = 8
 _NEG_INF = -1e30  # finite: a row that sees nothing stays finite
 
 
@@ -114,7 +133,18 @@ class TileMap:
 
     A query tile is Q_ROWS consecutive rows of the token-major (token, head in
     group) order, so it spans tokens [64 i // G, (64 i + 63) // G]; a key tile
-    is KEY_TILE consecutive keys.  A list entry is `2 * tile + is_full`."""
+    is `key_tile` consecutive keys.  A list entry is `2 * tile + is_full`.
+
+    The tensor-core kernels walk two further lists.  The forward runs one CTA
+    per pair of query tiles (2p, 2p + 1), one per warpgroup, over the key
+    tiles either of them sees: `pair_ptr` / `pair_ent`, entry `16 * key tile
+    + class of tile 2p + 4 * class of tile 2p + 1`, launched in `pair_order`.  dK/dV runs one CTA per
+    chunk of a key tile's transposed list: `chunks` rows (key tile, first and
+    end index into k_ent, partial slot or -1 where the key tile has one chunk
+    and writes dK/dV itself), longest first; a key tile that no query sees has
+    one empty chunk, which writes zeros.  `reduce` rows (key tile, first slot,
+    chunks) name the key tiles whose fp32 partials a second kernel sums in
+    chunk order."""
 
     classes: np.ndarray  # [n_q_tiles, n_k_tiles] int8: EMPTY / PARTIAL / FULL
     q_ptr: np.ndarray  # [n_q_tiles + 1] int32, CSR over q_ent
@@ -122,15 +152,26 @@ class TileMap:
     k_ptr: np.ndarray  # [n_k_tiles + 1] int32, CSR over k_ent
     k_ent: np.ndarray  # non-empty query tiles of each key tile, ascending
     visible_pairs: int  # visible (query token, key) pairs of the layout
-    _on_device: Dict[torch.device, Tuple[torch.Tensor, ...]] = dataclasses.field(
+    key_tile: int
+    pair_ptr: np.ndarray  # [n_pairs + 1] int32, CSR over pair_ent
+    pair_ent: np.ndarray  # key tiles of each pair of query tiles, ascending
+    pair_order: np.ndarray  # [n_pairs] int32: the pairs in launch order, longest list first
+    chunk: int  # C: the most query tiles of one dK/dV chunk
+    chunks: np.ndarray  # [n_chunks, 4] int32: key tile, e0, e1, slot
+    reduce: np.ndarray  # [n_reduce, 3] int32: key tile, first slot, chunks
+    n_slots: int  # partial slots (chunks of key tiles with more than one)
+    _on_device: Dict[torch.device, Dict[str, torch.Tensor]] = dataclasses.field(
         default_factory=dict, repr=False)
 
-    def device_lists(self, device: torch.device) -> Tuple[torch.Tensor, ...]:
-        """(q_ptr, q_ent, k_ptr, k_ent) as int32 tensors on `device`."""
+    def device_lists(self, device: torch.device) -> Dict[str, torch.Tensor]:
+        """The lists above (q_ptr, q_ent, k_ptr, k_ent, pair_ptr, pair_ent,
+        pair_order, chunks, reduce) as int32 tensors on `device`, by name."""
         lists = self._on_device.get(device)
         if lists is None:
-            lists = tuple(torch.from_numpy(a).to(device)
-                          for a in (self.q_ptr, self.q_ent, self.k_ptr, self.k_ent))
+            names = ("q_ptr", "q_ent", "k_ptr", "k_ent", "pair_ptr", "pair_ent", "pair_order",
+                     "chunks", "reduce")
+            lists = {n: torch.from_numpy(np.ascontiguousarray(getattr(self, n))).to(device)
+                     for n in names}
             self._on_device[device] = lists
         return lists
 
@@ -143,9 +184,45 @@ def _csr(classes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return ptr, np.ascontiguousarray(ent, np.int32)
 
 
+def _pair_lists(classes: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The forward's lists over pairs of query tiles and their launch order
+    (see TileMap)."""
+    n_qt, n_kt = classes.shape
+    padded = np.zeros((2 * (-(-n_qt // 2)), n_kt), np.int32)
+    padded[:n_qt] = classes
+    code = padded[0::2] + 4 * padded[1::2]
+    rows, cols = np.nonzero(code)
+    ptr = np.zeros(code.shape[0] + 1, np.int32)
+    np.cumsum(np.bincount(rows, minlength=code.shape[0]), out=ptr[1:])
+    order = np.argsort(-np.diff(ptr), kind="stable").astype(np.int32)
+    return ptr, np.ascontiguousarray(16 * cols + code[rows, cols], np.int32), order
+
+
+def _chunk_lists(k_ptr: np.ndarray) -> Tuple[int, np.ndarray, np.ndarray, int]:
+    """(C, chunks, reduce, n_slots) of the dK/dV schedule (see TileMap and
+    DKDV_CHUNKS): each key tile's list is cut into ceil(n / C) chunks of
+    near-equal length."""
+    n = np.diff(k_ptr).astype(np.int64)
+    C = max(DKDV_MIN_CHUNK, -(-int(n.sum()) // DKDV_CHUNKS))
+    chunks, reduce, slot = [], [], 0
+    for kt, (start, count) in enumerate(zip(k_ptr[:-1].tolist(), n.tolist())):
+        m = max(1, -(-count // C))
+        bounds = [start + (count * i) // m for i in range(m + 1)]
+        for i in range(m):
+            chunks.append((kt, bounds[i], bounds[i + 1], slot + i if m > 1 else -1))
+        if m > 1:
+            reduce.append((kt, slot, m))
+            slot += m
+    chunks = np.asarray(chunks, np.int32).reshape(-1, 4)
+    # longest first, so that the short chunks fill the last wave
+    chunks = chunks[np.argsort(chunks[:, 1] - chunks[:, 2], kind="stable")]
+    return C, chunks, np.asarray(reduce, np.int32).reshape(-1, 3), slot
+
+
 @functools.lru_cache(maxsize=64)
 def classify_tiles(L: int, prompt_len: int, T: int, seq_len: int, N: int,
-                   variant: str = "single", window_size: int = 4, groups: int = 1) -> TileMap:
+                   variant: str = "single", window_size: int = 4, groups: int = 1,
+                   key_tile: int = KEY_TILE) -> TileMap:
     """Classify every (query tile, key tile) pair without an [L, L] mask.
 
     Apart from its own block (or the prompt, for a prompt row), what a row sees
@@ -153,10 +230,11 @@ def classify_tiles(L: int, prompt_len: int, T: int, seq_len: int, N: int,
     through `train_mask`; its own block adds the causal interval that ends at
     the row.  That gives the number of visible keys of every (token, key tile),
     and a query tile is empty where no token of it sees a key of the tile and
-    full where each sees all KEY_TILE of them.  Cached per layout (a training
-    run meets a new layout with nearly every row)."""
+    full where each sees all `key_tile` of them.  Cached per layout and key
+    tile (a training run meets a new layout with nearly every row)."""
     P = prompt_len
-    n_kt = -(-L // KEY_TILE)
+    KT = key_tile
+    n_kt = -(-L // KT)
     tok = np.arange(L, dtype=np.int64)
     blk = (tok - P) // N  # negative on the prompt
     in_prompt = tok < P
@@ -174,15 +252,15 @@ def classify_tiles(L: int, prompt_len: int, T: int, seq_len: int, N: int,
                          window_size)
         vis &= (tok < seq_len)[None, :]
         vis &= ~((blk[None, :] == b[:, None]) & ~in_prompt[None, :])
-        pad = n_kt * KEY_TILE - L
-        per_block = np.pad(vis, ((0, 0), (0, pad))).reshape(n_blocks, n_kt, KEY_TILE).sum(-1)
+        pad = n_kt * KT - L
+        per_block = np.pad(vis, ((0, 0), (0, pad))).reshape(n_blocks, n_kt, KT).sum(-1)
         body = ~in_prompt
         counts[body] = per_block[blk[body]]
     # the causal interval [start, token] of the row's own block (or the prompt)
     start = np.where(in_prompt, 0, P + blk * N)
-    k0 = np.arange(n_kt, dtype=np.int64)[None, :] * KEY_TILE
-    own = np.minimum(tok[:, None] + 1, k0 + KEY_TILE) - np.maximum(start[:, None], k0)
-    counts += np.clip(own, 0, KEY_TILE).astype(np.int32)
+    k0 = np.arange(n_kt, dtype=np.int64)[None, :] * KT
+    own = np.minimum(tok[:, None] + 1, k0 + KT) - np.maximum(start[:, None], k0)
+    counts += np.clip(own, 0, KT).astype(np.int32)
     counts[~row_valid] = 0
 
     # aggregate tokens into query tiles (which may share a boundary token)
@@ -192,7 +270,7 @@ def classify_tiles(L: int, prompt_len: int, T: int, seq_len: int, N: int,
     some = np.zeros((L + 1, n_kt), np.int32)
     np.cumsum(counts > 0, axis=0, out=some[1:])
     whole = np.zeros((L + 1, n_kt), np.int32)
-    np.cumsum(counts == KEY_TILE, axis=0, out=whole[1:])
+    np.cumsum(counts == KT, axis=0, out=whole[1:])
     n_some = some[t1 + 1] - some[t0]
     n_whole = whole[t1 + 1] - whole[t0]
     classes = np.where(n_some > 0, PARTIAL, EMPTY).astype(np.int8)
@@ -201,8 +279,13 @@ def classify_tiles(L: int, prompt_len: int, T: int, seq_len: int, N: int,
     classes[n_whole == (t1 - t0 + 1)[:, None]] = FULL
     q_ptr, q_ent = _csr(classes)
     k_ptr, k_ent = _csr(classes.T)
+    pair_ptr, pair_ent, pair_order = _pair_lists(classes)
+    chunk, chunks, reduce, n_slots = _chunk_lists(k_ptr)
     return TileMap(classes=classes, q_ptr=q_ptr, q_ent=q_ent, k_ptr=k_ptr,
-                   k_ent=k_ent, visible_pairs=int(counts.sum()))
+                   k_ent=k_ent, visible_pairs=int(counts.sum()), key_tile=KT,
+                   pair_ptr=pair_ptr, pair_ent=pair_ent, pair_order=pair_order,
+                   chunk=chunk, chunks=chunks,
+                   reduce=reduce, n_slots=n_slots)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,11 @@
 
 Port of the TPU kernel `jacobiforcing_tpu/ops/pallas/train_attention.py::
 splash_train_attention`, forward and backward; the plain version is
-`ops/train_attention.train_attention_ref` under autograd.  `layout` is
+`ops/train_attention.train_attention_ref` under autograd.  float32 inputs take
+the fp32 CUDA-core kernels (32-key tiles); bfloat16 inputs take the
+tensor-core forward and dK/dV (64-key tiles, `train_fwd_tc_kernel`,
+`train_dkdv_tc_kernel` + `train_dkdv_reduce_kernel`) and the fp32 dQ kernel
+(32-key tiles).  `layout` is
 `(prompt_len, T_pairs, seq_len, N, variant, window_size)`.  Each wrapper
 checks device, dtype, shape and contiguity and raises on anything the kernels
 do not take; it launches on PyTorch's current stream, does not synchronise,
@@ -20,10 +24,15 @@ from typing import Tuple
 import torch
 
 from jacobiforcing_tpu_torch.ops import _build
-from jacobiforcing_tpu_torch.ops.paged_attention_cuda import _DTYPE_CODES, SUPPORTED_HEAD_DIMS
-from jacobiforcing_tpu_torch.ops.train_attention import VARIANTS, TileMap, classify_tiles
+from jacobiforcing_tpu_torch.ops.paged_attention_cuda import (
+    _ATTR_FIELDS, _DTYPE_CODES, SUPPORTED_HEAD_DIMS)
+from jacobiforcing_tpu_torch.ops.train_attention import (
+    KEY_TILE, TC_KEY_TILE, VARIANTS, TileMap, classify_tiles)
 
 _FNS = None
+# which kernel of the C interface: forward, dQ (with delta), dK/dV, and the
+# bf16 dK/dV's partial-sum kernel
+_WHICH = ("fwd", "dq", "dkdv", "dkdv_reduce")
 
 
 def _kernels():
@@ -33,9 +42,11 @@ def _kernels():
         tail = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_int,
                                      ctypes.c_void_p]
         fns = {}
-        for name, n_ptr in (("fwd", 7), ("dq", 10), ("dkdv", 10)):
+        # dkdv: 13 pointers, then the chunk and reduce counts
+        for name, head in (("fwd", [ctypes.c_void_p] * 8), ("dq", [ctypes.c_void_p] * 10),
+                           ("dkdv", [ctypes.c_void_p] * 13 + [ctypes.c_int] * 2)):
             fn = getattr(lib, f"jf_train_attention_{name}")
-            fn.argtypes = [ctypes.c_void_p] * n_ptr + tail
+            fn.argtypes = head + tail
             fn.restype = ctypes.c_int
             fns[name] = fn
         lib.jf_error_string.argtypes = [ctypes.c_int]
@@ -81,18 +92,49 @@ def check_inputs(q, k, v, layout, others=()) -> None:
             raise ValueError(f"{name} must start on a 16-byte boundary (the kernels load 16 B)")
 
 
-def _tiles(q, k, layout) -> TileMap:
+def variants():
+    """One dict per built (kernel, dtype, D) variant of csrc/train_attention.cu:
+    which tile it runs (tensor cores or the fp32 CUDA-core tile), its
+    registers, local (stack or spilled) bytes per thread, static and dynamic
+    shared memory, threads per CTA, keys per tile and stages.  Needs the
+    card."""
+    lib = _build.load("train_attention")
+    fn = lib.jf_train_attention_attrs
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rows = []
+    for which, name in enumerate(_WHICH):
+        for dtype, code in _DTYPE_CODES.items():
+            for D in SUPPORTED_HEAD_DIMS:
+                buf = (ctypes.c_int * len(_ATTR_FIELDS))()
+                rc = fn(which, code, D, buf)
+                if rc == -1:  # not a kernel of this dtype (the reduce kernel of f32)
+                    continue
+                if rc != 0:
+                    raise RuntimeError(f"jf_train_attention_attrs({name}, {dtype}, {D}) failed "
+                                       f"({rc})")
+                rows.append(dict(kernel=name, dtype=str(dtype).replace("torch.", ""), D=D,
+                                 **dict(zip(_ATTR_FIELDS, buf))))
+    return rows
+
+
+def _tiles(q, k, layout, key_tile=KEY_TILE) -> TileMap:
     prompt_len, T, seq_len, N, variant, window = layout
     return classify_tiles(q.shape[0], prompt_len, T, seq_len, N, variant, window,
-                          groups=q.shape[1] // k.shape[1])
+                          groups=q.shape[1] // k.shape[1], key_tile=key_tile)
 
 
-def _call(name: str, pointers, q, k, layout) -> None:
+def _tc(q) -> bool:
+    """bf16 inputs run the tensor-core forward and dK/dV on 64-key tiles."""
+    return q.dtype == torch.bfloat16
+
+
+def _call(name: str, args, q, k, layout) -> None:
     fns = _kernels()
     prompt_len, T, seq_len, N, variant, window = layout
     L, NH, D = q.shape
     lay = (ctypes.c_int * 6)(prompt_len, T, seq_len, N, VARIANTS.index(variant), window)
-    rc = fns[name](*pointers, L, NH, k.shape[1], D, lay, 1.0 / math.sqrt(D),
+    rc = fns[name](*args, L, NH, k.shape[1], D, lay, 1.0 / math.sqrt(D),
                    _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         msg = "unsupported shape, dtype or layout" if rc < 0 else fns["error_string"](rc).decode()
@@ -103,10 +145,16 @@ def train_attention_fwd_cuda(q, k, v, layout) -> Tuple[torch.Tensor, torch.Tenso
     """(out [L, NH, D], lse [L, NH] float32: the row log-sum-exp of the scaled
     scores, 0 for a row that sees nothing)."""
     check_inputs(q, k, v, layout)
-    q_ptr, q_ent, _, _ = _tiles(q, k, layout).device_lists(q.device)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    _call("fwd", [t.data_ptr() for t in (q, k, v, q_ptr, q_ent, out, lse)], q, k, layout)
+    if _tc(q):  # one CTA per pair of query tiles over 64-key tiles, longest first
+        lists = _tiles(q, k, layout, TC_KEY_TILE).device_lists(q.device)
+        lists = [lists[n].data_ptr() for n in ("pair_ptr", "pair_ent", "pair_order")]
+    else:
+        lists = _tiles(q, k, layout).device_lists(q.device)
+        lists = [lists["q_ptr"].data_ptr(), lists["q_ent"].data_ptr(), None]
+    _call("fwd", [t.data_ptr() for t in (q, k, v)] + lists + [out.data_ptr(), lse.data_ptr()],
+          q, k, layout)
     train_attention_fwd_cuda.launches += 1
     return out, lse
 
@@ -117,26 +165,41 @@ def train_attention_dq_cuda(q, k, v, out, lse, dout, layout) -> Tuple[torch.Tens
     check_inputs(q, k, v, layout, [("out", out, q.shape, q.dtype),
                                    ("dout", dout, q.shape, q.dtype),
                                    ("lse", lse, q.shape[:2], torch.float32)])
-    q_ptr, q_ent, _, _ = _tiles(q, k, layout).device_lists(q.device)
+    lists = _tiles(q, k, layout).device_lists(q.device)
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
-    _call("dq", [t.data_ptr() for t in (q, k, v, out, dout, lse, q_ptr, q_ent, dq, delta)],
-          q, k, layout)
+    _call("dq", [t.data_ptr() for t in (q, k, v, out, dout, lse, lists["q_ptr"], lists["q_ent"],
+                                        dq, delta)], q, k, layout)
     train_attention_dq_cuda.launches += 1
     return dq, delta
 
 
 def train_attention_dkdv_cuda(q, k, v, lse, delta, dout, layout
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) [L, KH, D], summed over the query heads of each KV head."""
+    """(dk, dv) [L, KH, D], summed over the query heads of each KV head.  bf16:
+    one CTA per (chunk of a 64-key tile's query tiles, KV head); a key tile
+    cut into several chunks sums their float32 partials, kept in a scratch
+    buffer of this call, in chunk order."""
     check_inputs(q, k, v, layout, [("dout", dout, q.shape, q.dtype),
                                    ("lse", lse, q.shape[:2], torch.float32),
                                    ("delta", delta, q.shape[:2], torch.float32)])
-    _, _, k_ptr, k_ent = _tiles(q, k, layout).device_lists(q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _call("dkdv", [t.data_ptr() for t in (q, k, v, dout, lse, delta, k_ptr, k_ent, dk, dv)],
-          q, k, layout)
+    ptrs = [t.data_ptr() for t in (q, k, v, dout, lse, delta)]
+    if _tc(q):
+        tm = _tiles(q, k, layout, TC_KEY_TILE)
+        lists = tm.device_lists(q.device)
+        # [slot][dK, dV][KH][64 keys][D] float32, every element written by its chunk
+        partial = torch.empty((max(tm.n_slots, 1), 2, k.shape[1], TC_KEY_TILE, q.shape[2]),
+                              dtype=torch.float32, device=q.device)
+        ptrs += [None] + [t.data_ptr() for t in (lists["k_ent"], lists["chunks"], lists["reduce"],
+                                                 partial)]
+        counts = [len(tm.chunks), len(tm.reduce)]
+    else:
+        lists = _tiles(q, k, layout).device_lists(q.device)
+        ptrs += [lists["k_ptr"].data_ptr(), lists["k_ent"].data_ptr(), None, None, None]
+        counts = [0, 0]
+    _call("dkdv", ptrs + [dk.data_ptr(), dv.data_ptr()] + counts, q, k, layout)
     train_attention_dkdv_cuda.launches += 1
     return dk, dv
 

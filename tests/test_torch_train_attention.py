@@ -58,20 +58,22 @@ def test_train_mask_rejects_unknown_variant():
                          ids=lambda l: "L%d-P%d-T%d-S%d-N%d" % l)
 @pytest.mark.parametrize("variant,window", VARIANTS)
 @pytest.mark.parametrize("groups", [1, 2, 7])
-def test_classify_tiles_agrees_with_dense_mask(layout, variant, window, groups):
+@pytest.mark.parametrize("key_tile", [ta.KEY_TILE, ta.TC_KEY_TILE])
+def test_classify_tiles_agrees_with_dense_mask(layout, variant, window, groups, key_tile):
     L, P, T, S, N = layout
+    KT = key_tile
     dense = _dense_mask(L, P, T, S, N, variant, window)
-    tm = ta.classify_tiles(L, P, T, S, N, variant, window, groups)
+    tm = ta.classify_tiles(L, P, T, S, N, variant, window, groups, key_tile=KT)
     n_qt, n_kt = tm.classes.shape
-    assert (n_qt, n_kt) == (-(-L * groups // ta.Q_ROWS), -(-L // ta.KEY_TILE))
+    assert (n_qt, n_kt, tm.key_tile) == (-(-L * groups // ta.Q_ROWS), -(-L // KT), KT)
     assert tm.visible_pairs == int(dense.sum())
     for i in range(n_qt):
         t0 = i * ta.Q_ROWS // groups
         t1 = min((i * ta.Q_ROWS + ta.Q_ROWS - 1) // groups, L - 1)
         for j in range(n_kt):
-            sub = dense[t0 : t1 + 1, j * ta.KEY_TILE : (j + 1) * ta.KEY_TILE]
+            sub = dense[t0 : t1 + 1, j * KT : (j + 1) * KT]
             want = ta.EMPTY if not sub.any() else (
-                ta.FULL if sub.all() and sub.shape[1] == ta.KEY_TILE else ta.PARTIAL)
+                ta.FULL if sub.all() and sub.shape[1] == KT else ta.PARTIAL)
             assert tm.classes[i, j] == want, (i, j)
     # the lists and the transposed lists are complete, ascending, and flag the full tiles
     for i in range(n_qt):
@@ -85,6 +87,72 @@ def test_classify_tiles_agrees_with_dense_mask(layout, variant, window, groups):
         np.testing.assert_array_equal(ent >> 1, rows)
         np.testing.assert_array_equal(ent & 1, tm.classes[rows, j] == ta.FULL)
     assert tm.q_ptr[-1] == tm.k_ptr[-1] == np.count_nonzero(tm.classes)
+
+
+# (L, prompt_len, T, seq_len, N, groups): the trainer's row at Qwen2.5-7B's
+# G = 7; chip_smoke's first case; small rows with a short and with no body
+CHUNK_LAYOUTS = [(4096, 512, 56, 4096, 32, 7), (1024, 100, 14, 996, 32, 7),
+                 (160, 37, 5, 149, 8, 2), (97, 97, 0, 97, 8, 1)]
+
+
+@pytest.mark.parametrize("layout", CHUNK_LAYOUTS, ids=lambda l: "L%d-P%d-T%d-S%d-N%d-G%d" % l)
+@pytest.mark.parametrize("variant,window", VARIANTS)
+def test_dkdv_chunks_cover_every_pair_once(layout, variant, window):
+    """The bf16 dK/dV schedule: every non-empty (key tile, query tile) pair in
+    exactly one chunk, each key tile's chunks in ascending order and back to
+    back, none longer than C, C as DKDV_CHUNKS says; a key tile no query sees
+    has one empty chunk; partial slots are used once each, in chunk order,
+    and named by the reduce list; the chunks are launched longest first."""
+    L, P, T, S, N, G = layout
+    tm = ta.classify_tiles(L, P, T, S, N, variant, window, G, key_tile=ta.TC_KEY_TILE)
+    n_kt = tm.classes.shape[1]
+    E = int(tm.k_ptr[-1])
+    assert tm.chunk == max(ta.DKDV_MIN_CHUNK, -(-E // ta.DKDV_CHUNKS))
+    kt, e0, e1, slot = tm.chunks.T
+    lens = e1 - e0
+    assert (lens >= 0).all() and (lens <= tm.chunk).all()
+    assert (np.diff(lens) <= 0).all()  # longest first
+    seen = []
+    reduce = {int(r[0]): (int(r[1]), int(r[2])) for r in tm.reduce}
+    assert len(reduce) == len(tm.reduce)
+    for j in range(n_kt):
+        mine = tm.chunks[kt == j]
+        mine = mine[np.argsort(mine[:, 1])]
+        assert len(mine) >= 1
+        np.testing.assert_array_equal(mine[:, 1], np.r_[tm.k_ptr[j], mine[:-1, 2]])
+        assert mine[-1, 2] == tm.k_ptr[j + 1]
+        q_tiles = np.concatenate([tm.k_ent[a:b] >> 1 for _, a, b, _ in mine])
+        assert (np.diff(q_tiles) > 0).all()
+        seen += [(j, int(i)) for i in q_tiles]
+        if len(mine) == 1:
+            assert mine[0, 3] == -1 and j not in reduce
+        else:
+            first, m = reduce[j]
+            np.testing.assert_array_equal(mine[:, 3], first + np.arange(m))
+    assert sorted(seen) == sorted(zip(*np.nonzero(tm.classes.T)))
+    assert len(seen) == len(set(seen)) == E
+    np.testing.assert_array_equal(np.sort(slot[slot >= 0]), np.arange(tm.n_slots))
+
+
+@pytest.mark.parametrize("layout", CHUNK_LAYOUTS, ids=lambda l: "L%d-P%d-T%d-S%d-N%d-G%d" % l)
+@pytest.mark.parametrize("variant,window", VARIANTS)
+def test_forward_pair_lists_match_the_classes(layout, variant, window):
+    """The bf16 forward's lists: per pair of query tiles, every key tile
+    either sees, ascending, with each tile's class for each warpgroup; the
+    pairs are launched longest list first."""
+    L, P, T, S, N, G = layout
+    tm = ta.classify_tiles(L, P, T, S, N, variant, window, G, key_tile=ta.TC_KEY_TILE)
+    n_qt = tm.classes.shape[0]
+    assert len(tm.pair_ptr) == -(-n_qt // 2) + 1
+    np.testing.assert_array_equal(np.sort(tm.pair_order), np.arange(len(tm.pair_ptr) - 1))
+    assert (np.diff(np.diff(tm.pair_ptr)[tm.pair_order]) <= 0).all()
+    for p in range(len(tm.pair_ptr) - 1):
+        ent = tm.pair_ent[tm.pair_ptr[p] : tm.pair_ptr[p + 1]]
+        c0 = tm.classes[2 * p]
+        c1 = tm.classes[2 * p + 1] if 2 * p + 1 < n_qt else np.zeros_like(c0)
+        np.testing.assert_array_equal(ent >> 4, np.flatnonzero((c0 > 0) | (c1 > 0)))
+        np.testing.assert_array_equal(ent & 3, c0[ent >> 4])
+        np.testing.assert_array_equal((ent >> 2) & 3, c1[ent >> 4])
 
 
 def _inputs(L, NH, KH, D, dtype, seed):
@@ -201,12 +269,18 @@ def cuda():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
 
 
-def _cuda_case(dtype):
-    L, P, T, S, N = 1024, 100, 14, 996, 32
+# (L, prompt_len, T, seq_len, N, variant, window) of the cuda-marked cases: a
+# windowed row padded past seq_len; a long prompt, whose key tiles each span
+# several bf16 dK/dV chunks
+CUDA_LAYOUTS = [(1024, 100, 14, 996, 32, "window", 2), (1024, 400, 9, 976, 32, "single", 4)]
+
+
+def _cuda_case(dtype, layout=CUDA_LAYOUTS[0]):
+    L, P, T, S, N, variant, window = layout
     q, k, v, dout = (torch.from_numpy(a).cuda().to(dtype)
                      for a in _inputs(L, 28, 4, 128, np.float32, seed=9))
     live = torch.from_numpy(_live_rows(L, P, T, S, N)).cuda()
-    kw = dict(prompt_len=P, T_pairs=T, seq_len=S, N=N, variant="window", window_size=2)
+    kw = dict(prompt_len=P, T_pairs=T, seq_len=S, N=N, variant=variant, window_size=window)
     return q, k, v, dout * live[:, None, None].to(dtype), live, kw
 
 
@@ -239,12 +313,17 @@ def test_kernel_forward_matches_plain_on_cuda(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", CUDA_LAYOUTS, ids=lambda l: "%s-P%d" % (l[5], l[1]))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_backward_matches_plain_on_cuda(cuda, dtype):
+def test_kernel_backward_matches_plain_on_cuda(cuda, dtype, layout):
     """dq, dk, dv of the hand-written kernels vs autograd of the plain version
     in float32 (f32: 2e-5 * max|ref|, sums of G * L products in another order),
     and bitwise equal across two runs."""
-    q, k, v, dout, _, kw = _cuda_case(dtype)
+    q, k, v, dout, _, kw = _cuda_case(dtype, layout)
+    L, P, T, S, N, variant, window = layout
+    if layout[1] >= 4 * ta.TC_KEY_TILE:  # the bf16 dK/dV sums chunk partials here
+        tm = ta.classify_tiles(L, P, T, S, N, variant, window, 7, key_tile=ta.TC_KEY_TILE)
+        assert all((tm.chunks[:, 0] == j).sum() >= 2 for j in range(P // ta.TC_KEY_TILE))
 
     def grads(fn, cast):
         a, b, c = (t.to(cast).detach().requires_grad_() for t in (q, k, v))
@@ -256,3 +335,99 @@ def test_kernel_backward_matches_plain_on_cuda(cuda, dtype):
     for g, g2, r in zip(got, again, ref):
         assert torch.equal(g, g2)
         assert _within(g, r, scale=2e-5)
+
+
+def tc_train_emulation(q, k, v, dout, layout):
+    """The bf16 tensor-core kernels' arithmetic in plain torch on CPU tensors
+    q [L, NH, D], k/v [L, KH, D], dout [L, NH, D] (bf16): (out, dk, dv).
+    Forward: `tc_tile_emulation` (64-key tiles, online softmax in the log2
+    domain, P rounded to bf16 before P.V), and the log-sum-exp of the scaled
+    scores.  dK/dV: delta = rowsum(dO * O) in float32; per chunk of a 64-key
+    tile's query tiles (TileMap.chunks), per query tile of 64 token-major
+    rows, S^T = K.Q^T and dP^T = V.dO^T from bf16 products in float32,
+    P^T = exp2(scale_log2 S^T - lse log2 e) on the visible elements,
+    dS^T = P^T (dP^T - delta), then dV += bf16(P^T).dO and dK += bf16(dS^T).Q
+    in float32; a key tile's chunk partials summed in chunk order, dK scaled
+    once, both rounded to bf16."""
+    from tests.test_torch_attention import tc_tile_emulation
+
+    L, NH, D = q.shape
+    KH = k.shape[1]
+    G = NH // KH
+    P, T, S, N, variant, window = layout
+    scale = 1.0 / np.sqrt(D)
+    c = torch.tensor(scale, dtype=torch.float32) * torch.tensor(1.4426950408889634,
+                                                                dtype=torch.float32)
+    idx = torch.arange(L)
+    mask = ta.train_mask(idx[:, None], idx[None, :], P, T, S, N, variant, window)
+    out = tc_tile_emulation(q[None], [(k[None], v[None], mask[None])], scale)[0]
+
+    # token-major rows per KV head: row r = token r // G, query head h * G + r % G
+    rows = lambda x: x.float().reshape(L, KH, G, -1).permute(1, 0, 2, 3).reshape(KH, L * G, -1)
+    qr, dor = rows(q), rows(dout)
+    s_all = torch.einsum("hrd,jhd->hrj", qr, k.float())  # [KH, rows, keys]
+    vis = mask[torch.arange(L * G) // G][None]  # [1, rows, keys]
+    m = torch.where(vis, s_all * scale, torch.tensor(-float("inf"))).amax(-1, keepdim=True)
+    m = torch.where(torch.isinf(m), torch.zeros(()), m)
+    lse_sum = torch.where(vis, torch.exp(s_all * scale - m), torch.zeros(())).sum(-1)
+    lse = torch.where(lse_sum > 0, m[..., 0] + torch.log(lse_sum), torch.zeros(()))
+    delta = (dor * rows(out)).sum(-1)  # [KH, rows]
+
+    tm = ta.classify_tiles(L, P, T, S, N, variant, window, G, key_tile=ta.TC_KEY_TILE)
+    kf, vf = k.float().permute(1, 0, 2), v.float().permute(1, 0, 2)  # [KH, L, D]
+    partial = {}
+    for kt, e0, e1, slot in tm.chunks.tolist():
+        keys = slice(kt * 64, min(kt * 64 + 64, L))
+        acc_k = torch.zeros(KH, keys.stop - keys.start, D)
+        acc_v = torch.zeros_like(acc_k)
+        for ent in tm.k_ent[e0:e1].tolist():
+            r = slice((ent >> 1) * 64, min((ent >> 1) * 64 + 64, L * G))
+            st = kf[:, keys] @ qr[:, r].transpose(1, 2)  # S^T [KH, keys, rows]
+            dpt = vf[:, keys] @ dor[:, r].transpose(1, 2)
+            ok = vis[:, r, keys].transpose(1, 2)
+            p = torch.where(ok, torch.exp2(st * c - lse[:, None, r] * 1.4426950408889634),
+                            torch.zeros(()))
+            ds = p * (dpt - delta[:, None, r])
+            acc_v += p.bfloat16().float() @ dor[:, r]
+            acc_k += ds.bfloat16().float() @ qr[:, r]
+        partial[(kt, e0)] = (acc_k, acc_v)
+    dk = torch.zeros(KH, L, D)
+    dv = torch.zeros(KH, L, D)
+    for kt in range(tm.classes.shape[1]):
+        parts = [partial[key] for key in sorted(x for x in partial if x[0] == kt)]
+        sk, sv = parts[0]
+        for pk, pv in parts[1:]:
+            sk, sv = sk + pk, sv + pv
+        dk[:, kt * 64 : kt * 64 + sk.shape[1]] = sk * scale
+        dv[:, kt * 64 : kt * 64 + sv.shape[1]] = sv
+    return out, dk.permute(1, 0, 2).bfloat16(), dv.permute(1, 0, 2).bfloat16()
+
+
+# (L, prompt_len, T, seq_len, N, KH, G, D): prompt key tiles that span two and
+# three dK/dV chunks, a row padded past seq_len, demo-like and 7B-like heads
+EMULATED = [(256, 40, 3, 232, 32, 2, 4, 64), (320, 100, 6, 292, 16, 1, 7, 128)]
+
+
+@pytest.mark.parametrize("case", EMULATED, ids=lambda c: "L%d-P%d-T%d-S%d-N%d-KH%d-G%d-D%d" % c)
+@pytest.mark.parametrize("variant,window", VARIANTS)
+def test_tensor_core_training_numerics_within_the_bf16_rule(case, variant, window):
+    """The emulated tensor-core forward and dK/dV held to autograd of the
+    plain version in float32 on the same bf16 inputs, under chip_smoke's bf16
+    rules (`check` for the output on the rows that take part, `check_grad` for
+    dk and dv); rows that see nothing give zeros."""
+    L, P, T, S, N, KH, G, D = case
+    q, k, v, dout = (torch.from_numpy(a).bfloat16()
+                     for a in _inputs(L, KH * G, KH, D, np.float32, seed=L + D))
+    live = torch.from_numpy(_live_rows(L, P, T, S, N))
+    dout = dout * live[:, None, None].bfloat16()
+    layout = (P, T, S, N, variant, window)
+    tm = ta.classify_tiles(L, P, T, S, N, variant, window, G, key_tile=ta.TC_KEY_TILE)
+    assert (tm.chunks[:, 0] == 0).sum() >= 2  # the prompt's first key tile is split
+    out, dk, dv = tc_train_emulation(q, k, v, dout, layout)
+    kw = dict(prompt_len=P, T_pairs=T, seq_len=S, N=N, variant=variant, window_size=window)
+    ref = _port_grads(ta.train_attention_ref, q.float().numpy(), k.float().numpy(),
+                      v.float().numpy(), dout.float().numpy(), **kw)
+    ref = [torch.from_numpy(r) for r in ref]
+    assert _within(out[live], ref[0][live])
+    assert not bool(out[~live].any())
+    assert _within(dk, ref[2]) and _within(dv, ref[3])
