@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # all phases, one card
 
     python3 chip_smoke.py kernel,train_kernel   # the kernels against their plain versions only
+    python3 chip_smoke.py int4                  # the int4 kernels and their path alone
 
     # the same phases from a parent tree (P) and this one (C) in turns, P C C P,
     # on one card: training kernel times, steps/s and step profiles side by side
@@ -38,9 +39,9 @@ result line):
      bound and a bf16 GEMM on the pre-dequantized weight, and its path: one
      decoder layer's seven linear layers through the dispatcher.
   3. `train_kernel`: a `[kernel-design]` line of the training kernels (bf16
-     forward and dK/dV on tensor cores, the rest on the fp32 tile; registers,
-     local bytes, shared memory; it fails on local memory in a new bf16
-     variant or a variant on the wrong tile).  The training-attention kernels
+     forward, dQ and dK/dV on tensor cores, every f32 kernel on the fp32
+     tile; registers, local bytes, shared memory; it fails on local memory in
+     a bf16 variant or a variant on the wrong tile).  The training-attention kernels
      (forward, dQ, dK/dV) against the plain version under autograd in float32: f32 and bf16, both
      head shapes, the three mask variants, rows shorter than their bucket, T
      below the pairs the row holds, prompt lengths off every tile edge, N
@@ -238,6 +239,30 @@ def time_ms(fn, iters=20):
     a.record()
     for _ in range(iters):
         fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def graph_ms(fn, iters=20):
+    """Device time per call: `iters` calls captured in one CUDA graph and
+    replayed, so the host's work per call (Python, checks, allocations, the
+    launch itself) is not in it.  `time_ms` keeps it, as a caller that
+    launches call after call would."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
@@ -757,8 +782,35 @@ def int4_bound(M, K, N, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def int4_kernel_design():
+    """The `[kernel-design]` line of the int4 kernels: tile, registers, local
+    bytes and shared memory of the fp32 kernel (f32 x) and of the tensor-core
+    kernel at 8 and 128 x rows per instruction with its reduce kernel (bf16 x).
+    Fails unless bf16 runs on tensor cores without local memory."""
+    from jacobiforcing_tpu_torch.ops import int4_matmul_cuda as i4c
+
+    variants = i4c.variants()
+    what = {"fp32": "fp32 CUDA-core tile (64 rows x 256 channels, K stages of 32)",
+            "tc_n8": f"tensor cores (wgmma m64n8k16, weights dequantized into the register A "
+                     f"operand; {i4c.TILE_P} packed columns per CTA, K stages of {i4c.STAGE_K})",
+            "tc_n128": "tensor cores (wgmma m64n128k16, as n8)",
+            "reduce": "chunk-ordered sum of the split route's fp32 partials"}
+    cells = [f"{v['kernel']} {'f32' if v['dtype'] == 'float32' else 'bf16'}: {what[v['kernel']]}, "
+             f"{v['threads']} threads {v['stages']} stages {v['registers']} regs "
+             f"{v['local_bytes']} B local {v['static_smem'] + v['dynamic_smem']} B smem"
+             for v in variants]
+    log("[kernel-design] int4_matmul: " + "; ".join(cells))
+    bad = [v for v in variants if v["dtype"] == "bfloat16" and (
+        v["local_bytes"] or v["tensor_cores"] != v["kernel"].startswith("tc_"))]
+    if bad or sum(v["tensor_cores"] for v in variants) != 2:
+        raise AssertionError(f"int4_matmul: a bf16 kernel is not on tensor cores or uses local "
+                             f"memory: {bad}")
+
+
 def phase_int4_kernel(timing):
     from jacobiforcing_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_ref
+
+    int4_kernel_design()
 
     # against the plain version: the JAX test's shape, ragged M and K, the 7B shapes
     shapes = [(16, 256, 1024), (3, 100, 96), (70, 37, 160)]
@@ -773,7 +825,13 @@ def phase_int4_kernel(timing):
                 f"max err/tol={worst:.3f} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"int4 kernel disagrees with the plain version: M={M} K={K} N={N}")
-    # a row's bits do not depend on how many rows come with it
+    # a row's bits do not depend on how many rows come with it: M 4 takes the
+    # split route (n8, partials summed by the reduce kernel), M 1536 the
+    # unsplit one (n128, the chunks summed in registers)
+    from jacobiforcing_tpu_torch.ops.int4_matmul_cuda import plan
+
+    if plan(4, 3584, 512)[3] == plan(1536, 3584, 512)[3]:
+        raise AssertionError("the bitwise-rows shape no longer takes both routes")
     c = make_int4_case(1536, 3584, 512, torch.bfloat16, seed=9100)
     full = int4_matmul(c["x"], c["wp"], c["scale"])
     few = int4_matmul(c["x"][700:704].contiguous(), c["wp"], c["scale"])
@@ -794,6 +852,8 @@ def phase_int4_kernel(timing):
             plain = time_ms(lambda: int4_matmul_ref(x, wp, scale), iters=3)
             w_bf16 = c["wq"].to(torch.bfloat16)
             dense = time_ms(lambda: x @ w_bf16, iters=10)
+            g_ms = graph_ms(lambda: int4_matmul(x, wp, scale))
+            g_dense = graph_ms(lambda: x @ w_bf16)
             bms, by = int4_bound(M, K, N, torch.bfloat16)
             err, worst, ok = check_int4(int4_matmul(x, wp, scale),
                                         int4_matmul_ref(x.float(), wp, scale))
@@ -801,7 +861,9 @@ def phase_int4_kernel(timing):
                 f"{plain:.4f} ms, x @ W_bf16 on the pre-dequantized weight (4x the weight bytes) "
                 f"{dense:.4f} ms, bound {bms:.5f} ms ({by}), {bms / ms * 100:.2f}% of bound, "
                 f"{2 * M * K * N / ms / 1e9:.1f} TFLOP/s, max err/tol {worst:.3f} "
-                f"{'ok' if ok else 'FAIL'}")
+                f"{'ok' if ok else 'FAIL'}; in a CUDA graph (device time, no host work per "
+                f"call): kernel {g_ms:.4f} ms ({bms / g_ms * 100:.2f}% of bound), x @ W_bf16 "
+                f"{g_dense:.4f} ms")
             if not ok:
                 raise AssertionError(f"int4 kernel disagrees at the timed shape {sname} M={M}")
             timing[f"int4_{sname}_M{M}"] = dict(ms=ms, plain_ms=plain, library_ms=None,
@@ -947,10 +1009,10 @@ def train_bounds(c):
 def train_kernel_design():
     """The `[kernel-design]` line of the training kernels: which tile each
     (kernel, dtype, D) variant runs, with its registers, local bytes and
-    shared memory.  Fails unless bf16 runs the tensor-core forward and dK/dV
-    (and the fp32 dQ), float32 the fp32 kernels, and unless every bf16
-    variant of the forward and dK/dV (the reduce kernel included) uses no
-    local memory."""
+    shared memory.  Fails unless bf16 runs the tensor-core forward, dQ (delta
+    folded in: no bf16 delta kernel) and dK/dV, float32 the fp32 forward,
+    delta, dQ and dK/dV, and unless every bf16 variant (the reduce kernel
+    included) uses no local memory."""
     from jacobiforcing_tpu_torch.ops import train_attention_cuda as tac
 
     variants = tac.variants()
@@ -962,11 +1024,15 @@ def train_kernel_design():
              for v in variants]
     log("[kernel-design] train_attention: " + "; ".join(cells))
     wrong = [v for v in variants
-             if v["tensor_cores"] != (v["dtype"] == "bfloat16" and v["kernel"] in ("fwd", "dkdv"))
-             or (v["dtype"] == "bfloat16" and v["kernel"] != "dq" and v["local_bytes"])]
-    if wrong or not any(v["kernel"] == "dkdv_reduce" for v in variants):
-        raise AssertionError(f"train_attention: a variant runs the wrong tile or a new bf16 "
-                             f"variant uses local memory: {wrong}")
+             if v["tensor_cores"] != (v["dtype"] == "bfloat16" and v["kernel"] in ("fwd", "dq", "dkdv"))
+             or (v["dtype"] == "bfloat16" and (v["local_bytes"] or v["kernel"] == "delta"))]
+    have = {(v["kernel"], v["dtype"]) for v in variants}
+    want = {(n, "float32") for n in ("fwd", "dq", "dkdv", "delta")}
+    want |= {(n, "bfloat16") for n in ("fwd", "dq", "dkdv", "dkdv_reduce")}
+    if wrong or not want <= have:
+        raise AssertionError(f"train_attention: a variant runs the wrong tile, a bf16 variant "
+                             f"uses local memory, or a kernel is missing: {wrong}, "
+                             f"missing {sorted(want - have)}")
 
 
 def phase_train_kernel(timing):
@@ -1702,7 +1768,9 @@ def packed_row(vocab, P, T, N, seed):
 
 
 def step_profile(prof, wall_ms):
-    """Device time by group inside the `profiled_step` range of a trace."""
+    """Device time by group inside the `profiled_step` range of a trace;
+    returns the number of delta-kernel launches in the step (bf16 folds
+    delta into the dQ kernel)."""
     from torch.autograd import DeviceType
 
     events = prof.events()
@@ -1714,6 +1782,7 @@ def step_profile(prof, wall_ms):
               "train_attention dK/dV (this repo's kernel)": 0.0,
               "GEMM (cuBLAS)": 0.0, "AdamW (fused)": 0.0, "other": 0.0}
     named = {}
+    n_delta = 0
     for e in events:
         # kernels and copies only: a record_function range also shows on the
         # device's timeline, as an annotation that spans what it launched
@@ -1723,6 +1792,7 @@ def step_profile(prof, wall_ms):
         t = (e.time_range.end - e.time_range.start) / 1e3  # us -> ms
         named[e.name] = named.get(e.name, 0.0) + t
         low = e.name.lower()
+        n_delta += "train_delta" in low
         if "train_fwd" in low:
             groups["train_attention forward (this repo's kernel)"] += t
         elif "train_dq" in low or "train_delta" in low:
@@ -1744,6 +1814,8 @@ def step_profile(prof, wall_ms):
         log(f"[train-profile]   {g}: {t:.2f} ms ({t / max(busy, 1e-9) * 100:.1f}% of device time)")
     for kname, t in sorted(named.items(), key=lambda kv: -kv[1])[:10]:
         log(f"[train-profile]   top kernel {t:8.2f} ms  {kname[:110]}")
+    log(f"[train-profile]   train_delta_kernel launches in the step: {n_delta}")
+    return n_delta
 
 
 def phase_train_full(counter, launches_out, params=None, cfg=None, row_shape=(512, 56, 32)):
@@ -1826,7 +1898,9 @@ def phase_train_full(counter, launches_out, params=None, cfg=None, row_shape=(51
         train(TrainerArgs(max_steps=2, **args), model_cfg=cfg, params=params, dataset=ds,
               device=DEV, log_fn=on_log_profiled)
     if cuda:
-        step_profile(prof, (stamps[-1] - stamps[-2]) * 1e3)
+        n_delta = step_profile(prof, (stamps[-1] - stamps[-2]) * 1e3)
+        if cfg.dtype == torch.bfloat16 and n_delta:
+            raise AssertionError("the bf16 step launched the delta kernel: dQ folds it in")
 
 
 def phase_train(counter, launches_out, params=None):
@@ -1848,6 +1922,9 @@ COMPARE_PATTERNS = {
                r"([\d.]+) ms",
     "group": r"\[train-profile\]\s+([^:]+\)|GEMM \(cuBLAS\)|AdamW \(fused\)|other): "
              r"([\d.]+) ms \(([\d.]+)% of device time\)",
+    # [int4-kernel-time] gateup M=4 ... bf16: kernel X ms, ... weight bytes) Y ms, bound Z ms
+    "int4": r"\[int4-kernel-time\] (\w+) M=(\d+) K=\d+ N=\d+ bf16: kernel ([\d.]+) ms, plain "
+            r"[\d.]+ ms, x @ W_bf16 [^)]+\) ([\d.]+) ms, bound ([\d.]+) ms",
 }
 
 
@@ -1855,8 +1932,8 @@ def compare(parent: str, phases: str = "train_kernel,train", order: str = "PCCP"
             log_dir: str = "build/compare") -> int:
     """Run `chip_smoke.py <phases>` from the parent tree (P) and from this
     tree (C) in turns, each in a process of its own on the same card, and
-    print the training kernels' times, the full-width steps/s and the step
-    profile of every run side by side.  Each run's whole output goes to
+    print the training kernels' times, the full-width steps/s, the step
+    profile and the int4 kernel's times of every run side by side.  Each run's whole output goes to
     <log_dir>/compare-<n>-<P|C>.log (log_dir relative to this tree)."""
     import re
 
@@ -1897,6 +1974,8 @@ def compare(parent: str, phases: str = "train_kernel,train", order: str = "PCCP"
             log(f"[compare]   {tag} profiled step {step_ms} ms, device busy {busy} ms")
         for g, ms, share in got["group"]:
             log(f"[compare]   {tag}   {g}: {ms} ms ({share}% of device time)")
+        for sname, M, ms, gemm, b in got["int4"]:
+            log(f"[compare]   {tag} int4 {sname} M={M}: {ms} ms (bound {b}), bf16 GEMM {gemm} ms")
     # every run's numbers of one kind side by side: parent runs, then change runs
     table = {}
     for _, tag, got in rows:
@@ -1905,6 +1984,9 @@ def compare(parent: str, phases: str = "train_kernel,train", order: str = "PCCP"
                 table.setdefault(f"{kname} L={L} ms", {}).setdefault(tag, []).append(ms)
         for sps, _ in got["steps"]:
             table.setdefault("full-width training steps/s", {}).setdefault(tag, []).append(sps)
+        for sname, M, ms, gemm, _ in got["int4"]:
+            table.setdefault(f"int4 {sname} M={M} ms", {}).setdefault(tag, []).append(ms)
+            table.setdefault(f"int4 {sname} M={M} bf16 GEMM ms", {}).setdefault(tag, []).append(gemm)
     for what, by_tag in table.items():
         log(f"[compare] {what}: parent {', '.join(by_tag.get('P', []))}; change "
             f"{', '.join(by_tag.get('C', []))}")
@@ -1952,8 +2034,10 @@ def main() -> int:
         kernel_design()
         run("kernel (paged attention)", phase_kernel, timing)
         run("kernel (speculative attention)", phase_spec_kernel, timing)
+    if "kernel" in phases or "int4" in phases:
         run("kernel (int4 matmul)", phase_int4_kernel, timing)
         phase_int4_path(launches)
+    if "kernel" in phases:
         phase_int8_gemm()
     if "train_kernel" in phases:
         run("train_kernel", phase_train_kernel, timing)

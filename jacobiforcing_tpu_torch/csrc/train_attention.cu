@@ -39,11 +39,13 @@
 // tile of attention_tile.cuh), which carry the f32 training anchors.
 //   * forward: one CTA per (query tile, KV head), the online-softmax tile step
 //     shared with the serving kernels; writes O and the row log-sum-exp.
+//   * dQ: train_delta_kernel (delta = rowsum(dO * O)), then train_dq_kernel,
+//     one CTA per (query tile, KV head); dS goes from lane to lane by shuffle.
 //   * dK/dV: one CTA per (key tile, KV head) over the transposed list, in
 //     halves of 32 query rows; P and dS pass through shared memory.
 //
-// bfloat16 inputs: the forward and dK/dV on Hopper's tensor cores (wgmma,
-// the jf::tc tools of attention_tile.cuh), 64-key tiles:
+// bfloat16 inputs: all three on Hopper's tensor cores (wgmma, the jf::tc
+// tools of attention_tile.cuh), 64-key tiles:
 //   * forward (train_fwd_tc_kernel): the serving kernels' tensor-core tile.
 //     A CTA of two warpgroups holds two query tiles (128 rows) and walks the
 //     64-key tiles either of them sees, in ascending order, through a ring of
@@ -51,6 +53,20 @@
 //     is empty (the warpgroup skips it), partial (masked by the words) or
 //     full, and the pairs with the longest lists are launched first.
 //     Writes O and a float32 log-sum-exp, which dQ and dK/dV read.
+//   * dQ (train_dq_tc_kernel): the forward's grid, pair lists, K/V ring and
+//     masking, with the CTA's dO tiles staged beside its Q tiles.  Per key
+//     tile S = Q.K^T and dP = dO.V^T by wgmma from shared memory (K and V
+//     read K-major), P = 2^(scale_log2 S - lse log2 e) and dS = P (dP -
+//     delta) on the accumulator fragments, then dQ += dS.K with dS rounded
+//     to bf16 as the register A operand and K read MN-major (as P.V reads
+//     V); dQ is scaled once at the end.  Delta is folded in: each CTA first
+//     takes rowsum(dO * O) of its 128 rows from the saved bf16 O and writes
+//     it for dK/dV, so one kernel replaces the fp32 pair.  Bounded, like the
+//     forward, by the operations (three products per visible pair against
+//     the forward's two); what it leaves on the table is the same: the copy
+//     issue of the 16-byte cp.async gathers inside the wgmma windows and one
+//     CTA per SM (~198 KiB of shared memory at D 128), which TMA and a
+//     producer warp would lift.
 //   * dK/dV (train_dkdv_tc_kernel): a CTA is one warpgroup that owns 64 keys
 //     of one KV head and keeps their dK and dV in fp32 registers.  Per query
 //     tile (64 token-major rows, Q and dO double-buffered by cp.async):
@@ -67,8 +83,6 @@
 //     launched longest first.  A key tile of one chunk writes dK / dV itself;
 //     one of several writes fp32 partials to a scratch buffer, and
 //     train_dkdv_reduce_kernel sums them in chunk order and scales dK.
-//   * dQ keeps the fp32 kernel (32-key tiles) in both types: it reads the
-//     log-sum-exp of either forward.
 
 #include "attention_tile.cuh"
 
@@ -109,7 +123,6 @@ __device__ __forceinline__ bool sees(int q, int bq, int k, int bk, const Layout&
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // Stage n rows of D elements into dst (row stride STRIDE) as fp32; row i lives
 // at element offset off[i] of src, a negative offset stages zeros.
@@ -501,7 +514,7 @@ train_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: forward and dK/dV on the tensor cores
+// bfloat16: forward, dQ and dK/dV on the tensor cores
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -622,6 +635,199 @@ train_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if ((lane & 3) != 0 || r >= n_rows) continue;
     lse[(long long)(r / G) * NH + h * G + r % G] =
         l > 0.f ? __fmul_rn(__fadd_rn(st.m[rr], log2f(l)), LN2) : 0.f;
+  }
+}
+
+// One dQ step of a warpgroup over the staged key tile: q / dO are the shared
+// addresses of its Q and dO tiles, k / v the stage's.  S = Q.K^T and
+// dP = dO.V^T by wgmma from shared memory (fill(0) meanwhile); on the
+// accumulator fragments P = 2^(scale_log2 S - lse log2 e) where vis(rr, j)
+// holds (else 0) and dS = P (dP - delta); then dQ += bf16(dS).K with dS as
+// the register A operand and K read MN-major, as P.V reads V (fill(1)
+// meanwhile).  lse2 / dlt: lse log2 e and delta of this thread's two rows.
+template <int D, typename Vis, typename Fill>
+__device__ __forceinline__ void dq_tile_step(uint32_t q, uint32_t dO, uint32_t k, uint32_t v,
+                                             float scale_log2, const float (&lse2)[2],
+                                             const float (&dlt)[2], const Vis& vis,
+                                             const Fill& fill, float (&acc)[D / 2]) {
+  float s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  tc::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * tc::SUB + (kk & 3) * 32;
+    tc::mma_ss_m64n64(s, tc::desc_kmajor(q + off), tc::desc_kmajor(k + off), kk);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * tc::SUB + (kk & 3) * 32;
+    tc::mma_ss_m64n64(dp, tc::desc_kmajor(dO + off), tc::desc_kmajor(v + off), kk);
+  }
+  tc::wgmma_commit();
+  fill(0);
+  tc::wgmma_wait_all();
+  tc::fence_regs(s);
+  tc::fence_regs(dp);
+
+  // element 4i + e: row (e < 2 ? lo : hi), key 8i + 2 q4 + (e & 1)
+  const int q4 = threadIdx.x & 3;
+  uint32_t a[4][4];  // dS as bf16 A fragments, one per 16 keys
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rr = e >> 1;
+      const float p = vis(rr, 8 * i + 2 * q4 + (e & 1))
+                          ? tc::ex2(fmaf(s[4 * i + e], scale_log2, -lse2[rr]))
+                          : 0.f;
+      s[4 * i + e] = __fmul_rn(p, dp[4 * i + e] - dlt[rr]);
+    }
+    a[i >> 1][(i & 1) * 2] = tc::pack_bf16(s[4 * i], s[4 * i + 1]);
+    a[i >> 1][(i & 1) * 2 + 1] = tc::pack_bf16(s[4 * i + 2], s[4 * i + 3]);
+  }
+
+  tc::fence_regs(acc);
+  tc::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < tc::KT / 16; ++kk)
+    tc::mma_pv<D>(acc, a[kk], tc::desc_mnmajor(k + kk * 16 * 128));
+  tc::wgmma_commit();
+  fill(1);
+  tc::wgmma_wait_all();
+  tc::fence_regs(acc);
+}
+
+// dQ with delta folded in: the forward's grid and lists (CTA = tc::WGS = 2
+// warpgroups = query tiles 2p and 2p + 1 of KV head h, the 64-key tiles of
+// pair_ent in ascending order, longest lists first) and its K/V ring.  The
+// CTA first takes delta = rowsum(dO * O) of its 128 rows from the saved bf16
+// O (one warp per row, fmaf over each lane's elements in order, then a fixed
+// butterfly), writes it for the dK/dV call and keeps it for dS.  Dynamic
+// shared memory: tc::SMEM<D> (Q tiles, the K/V ring), then the dO tiles.
+template <int D>
+constexpr size_t DQ_SMEM = tc::SMEM<D> + size_t(tc::WGS) * tc::TILE<D>;
+
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, 1)
+train_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ out,
+                   const bf16* __restrict__ dout, const float* __restrict__ lse,
+                   const int* __restrict__ pair_ptr, const int* __restrict__ pair_ent,
+                   const int* __restrict__ pair_order, bf16* __restrict__ dq,
+                   float* __restrict__ delta, int L, int NH, int KH, Layout lay, float scale) {
+  extern __shared__ unsigned char smem_tc[];
+  const tc::Smem<D> sm(smem_tc);
+  const uint32_t do_t = sm.kv + tc::KV_TILES * tc::TILE<D>;  // warpgroup w's dO at + w TILE
+  __shared__ int ent_s[tc::STAGES];
+  __shared__ unsigned long long vis_s[tc::STAGES][tc::ROWS];
+  __shared__ float delta_s[tc::ROWS];
+
+  const int pair = pair_order[blockIdx.x];
+  const int h = blockIdx.y;
+  const int row0 = pair * tc::ROWS;
+  const int G = NH / KH;
+  const int n_rows = G * L;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int lane = tid & 31;
+  const int r_lo = wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
+  const bool builds = (tid & 64) == 0;
+  const int row_w = wg * 64 + (tid & 63);
+  const int tok_w = row0 + row_w < n_rows ? (row0 + row_w) / G : -1;
+  const int blk_w = block_of(tok_w, lay);
+
+  tc::issue_q<D>(q, sm.q, 0, L, NH, h, G, row0, tid);
+  tc::issue_q<D>(dout, do_t, 0, L, NH, h, G, row0, tid);
+  tc::cp_async_commit();
+
+  // ---- delta of the CTA's rows while Q and dO land ----
+  {
+    constexpr int DPL = D / 32;
+    constexpr int RPW = tc::ROWS / (tc::THREADS / 32);  // rows per warp
+    const int warp = tid >> 5;
+    float d[RPW];
+#pragma unroll
+    for (int j = 0; j < RPW; ++j) {
+      const int r = row0 + warp + j * (tc::THREADS / 32);
+      d[j] = 0.f;
+      if (r < n_rows) {
+        const long long off = ((long long)(r / G) * NH + h * G + r % G) * D + lane * DPL;
+#pragma unroll
+        for (int i = 0; i < DPL; ++i)
+          d[j] = fmaf(__bfloat162float(dout[off + i]), __bfloat162float(out[off + i]), d[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RPW; ++j) {
+      const int i = warp + j * (tc::THREADS / 32);
+      const int r = row0 + i;
+      const float x = warp_sum(d[j]);
+      if (lane == 0) {
+        delta_s[i] = x;
+        if (r < n_rows) delta[(long long)(r / G) * NH + h * G + r % G] = x;
+      }
+    }
+  }
+  __syncthreads();
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = row0 + r_lo + 8 * rr;
+    lse2[rr] = r < n_rows ? __fmul_rn(lse[(long long)(r / G) * NH + h * G + r % G], LOG2E) : 0.f;
+    dlt[rr] = delta_s[r_lo + 8 * rr];
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const uint32_t q_wg = sm.q + wg * tc::TILE<D>;
+  const uint32_t do_wg = do_t + wg * tc::TILE<D>;
+  const float scale_log2 = __fmul_rn(scale, LOG2E);
+  const int e0 = pair_ptr[pair];
+  const bf16* k_head = k + (long long)h * D;
+  const bf16* v_head = v + (long long)h * D;
+  auto issue = [&](int i, int s, int part) {
+    const int ent = pair_ent[e0 + i];
+    const int k0 = (ent >> 4) * tc::KT;
+    tc::issue_kv_bf16<D>(k_head, v_head,
+                         [&](int j) -> long long {
+                           return k0 + j < L ? (long long)(k0 + j) * KH * D : -1;
+                         },
+                         sm.k(s), sm.v(s), tid, part);
+    if (part == 1 && builds) vis_s[s][row_w] = visible_word(tok_w, blk_w, k0, lay);
+    if (part == 0 && tid == 0) ent_s[s] = ent;
+  };
+  auto step = [&](int, int s, uint32_t kt, uint32_t vt, const auto& fill) {
+    const int ent = ent_s[s];
+    const int cls = (ent >> (2 * wg)) & 3;
+    if (cls == EMPTY_TILE) {
+      fill(0);
+      fill(1);
+    } else if (cls == FULL_TILE) {
+      dq_tile_step<D>(q_wg, do_wg, kt, vt, scale_log2, lse2, dlt,
+                      [](int, int) { return true; }, fill, acc);
+    } else {
+      const unsigned long long w_lo = vis_s[s][r_lo], w_hi = vis_s[s][r_lo + 8];
+      dq_tile_step<D>(q_wg, do_wg, kt, vt, scale_log2, lse2, dlt,
+                      [&](int rr, int j) { return (((rr ? w_hi : w_lo) >> j) & 1ull) != 0; },
+                      fill, acc);
+    }
+  };
+  tc::walk_keys<bf16, D>(sm, pair_ptr[pair + 1] - e0, issue, step, nullptr, nullptr, tid);
+
+  // ---- dQ = scale * sum dS.K, token-major rows; a row that sees nothing is zero ----
+  const int q4 = lane & 3;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = row0 + r_lo + 8 * rr;
+    if (r >= n_rows) continue;
+    bf16* o = dq + ((long long)(r / G) * NH + h * G + r % G) * D + 2 * q4;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * i) = __floats2bfloat162_rn(
+          __fmul_rn(acc[4 * i + 2 * rr], scale), __fmul_rn(acc[4 * i + 2 * rr + 1], scale));
+    }
   }
 }
 
@@ -890,7 +1096,7 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 struct Args {
   const void *q, *k, *v, *out, *dout, *lse, *delta, *ptr, *ent;
-  const void* order;            // bf16 forward: the pairs in launch order
+  const void* order;            // bf16 forward and dQ: the pairs in launch order
   const void *chunks, *reduce;  // bf16 dK/dV: the chunk and reduce lists
   void* partial;                // bf16 dK/dV: float32 partials of split key tiles
   void *o0, *o1;  // outputs: fwd (out, lse), dq (dq, delta), dkdv (dk, dv)
@@ -968,6 +1174,25 @@ int launch_fwd_tc(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// pair_ptr / pair_ent in ptr / ent, the pairs' launch order in order; writes
+// dQ and delta
+template <int D>
+int launch_dq_tc(const Args& a) {
+  if (a.order == nullptr) return -1;
+  constexpr size_t smem = DQ_SMEM<D>;
+  cudaError_t err = allow_smem(train_dq_tc_kernel<D>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = (a.NH / a.KH) * a.L;
+  const dim3 grid((rows + tc::ROWS - 1) / tc::ROWS, a.KH);
+  train_dq_tc_kernel<D><<<grid, tc::THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+      static_cast<const bf16*>(a.out), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const int*>(a.ptr),
+      static_cast<const int*>(a.ent), static_cast<const int*>(a.order), static_cast<bf16*>(a.o0),
+      static_cast<float*>(a.o1), a.L, a.NH, a.KH, a.lay, a.scale);
+  return (int)cudaGetLastError();
+}
+
 // k_ent (64-key tiles) in ent; every key tile has at least one chunk
 template <int D>
 int launch_dkdv_tc(const Args& a) {
@@ -990,7 +1215,7 @@ int launch_dkdv_tc(const Args& a) {
 }
 
 // which: 0 forward, 1 dQ (with delta), 2 dK/dV.  float32 runs the fp32
-// kernels; bfloat16 the tensor-core forward and dK/dV and the fp32 dQ.
+// kernels; bfloat16 the tensor-core ones.
 int dispatch(int which, int dtype, int D, const Args& a) {
   if (a.L <= 0 || a.KH <= 0 || a.NH % a.KH != 0 || a.lay.N <= 0 || a.lay.W <= 0 ||
       a.lay.P < 0 || a.lay.T < 0 || a.lay.seq_len < 0 || a.lay.seq_len > a.L ||
@@ -1006,7 +1231,7 @@ int dispatch(int which, int dtype, int D, const Args& a) {
 #define JF_BF16(DIM)                              \
   switch (which) {                                \
     case 0: return launch_fwd_tc<DIM>(a);         \
-    case 1: return launch_dq<bf16, DIM>(a);       \
+    case 1: return launch_dq_tc<DIM>(a);          \
     case 2: return launch_dkdv_tc<DIM>(a);        \
     default: return -1;                           \
   }
@@ -1019,7 +1244,8 @@ int dispatch(int which, int dtype, int D, const Args& a) {
   return -1;
 }
 
-// kernel_attrs of one variant; which 3 is the bf16 dK/dV's reduce kernel
+// kernel_attrs of one variant; which 3 is the bf16 dK/dV's reduce kernel, 4
+// the f32 delta kernel (bf16 folds delta into dQ)
 template <int D>
 int attrs(int which, int dtype, int* out) {
   int rc = -1;
@@ -1028,11 +1254,12 @@ int attrs(int which, int dtype, int* out) {
     if (which == 1) rc = kernel_attrs(train_dq_kernel<float, D>, false, dq_smem_bytes<D>(), THREADS, out);
     if (which == 2)
       rc = kernel_attrs(train_dkdv_kernel<float, D>, false, dkdv_smem_bytes<D>(), THREADS, out);
+    if (which == 4) rc = kernel_attrs(train_delta_kernel<float, D>, false, 0, THREADS, out);
     return rc;
   }
   if (dtype != 1) return -1;
   if (which == 0) rc = kernel_attrs(train_fwd_tc_kernel<D>, true, tc::SMEM<D>, tc::THREADS, out);
-  if (which == 1) rc = kernel_attrs(train_dq_kernel<bf16, D>, false, dq_smem_bytes<D>(), THREADS, out);
+  if (which == 1) rc = kernel_attrs(train_dq_tc_kernel<D>, true, DQ_SMEM<D>, tc::THREADS, out);
   if (which == 2) {
     rc = kernel_attrs(train_dkdv_tc_kernel<D>, true, DKDV_SMEM<D>, DK_THREADS, out);
     out[7] = DK_STAGES;
@@ -1054,7 +1281,7 @@ int attrs(int which, int dtype, int* out) {
 
 // float32: q_ptr / q_ent per query tile over 32-key tiles, order null;
 // bfloat16: pair_ptr / pair_ent per pair of query tiles over 64-key tiles and
-// the pairs in launch order (TileMap).
+// the pairs in launch order (TileMap).  The same for dQ.
 extern "C" int jf_train_attention_fwd(const void* q, const void* k, const void* v,
                                       const void* q_ptr, const void* q_ent, const void* order,
                                       void* out, void* lse, int L, int NH, int KH, int D,
@@ -1071,12 +1298,13 @@ extern "C" int jf_train_attention_fwd(const void* q, const void* k, const void* 
 // Also writes delta[L, NH] = rowsum(dout * out), which the dK/dV call reads.
 extern "C" int jf_train_attention_dq(const void* q, const void* k, const void* v,
                                      const void* out, const void* dout, const void* lse,
-                                     const void* q_ptr, const void* q_ent, void* dq, void* delta,
+                                     const void* q_ptr, const void* q_ent, const void* order,
+                                     void* dq, void* delta,
                                      int L, int NH, int KH, int D, const int* layout,
                                      float scale, int dtype, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.out = out; a.dout = dout; a.lse = lse; a.ptr = q_ptr;
-  a.ent = q_ent; a.o0 = dq; a.o1 = delta;
+  a.ent = q_ent; a.order = order; a.o0 = dq; a.o1 = delta;
   a.L = L; a.NH = NH; a.KH = KH; a.scale = scale;
   a.lay = Layout{layout[0], layout[1], layout[2], layout[3], layout[4], layout[5]};
   a.stream = static_cast<cudaStream_t>(stream);
@@ -1104,7 +1332,8 @@ extern "C" int jf_train_attention_dkdv(const void* q, const void* k, const void*
 }
 
 // The tile, registers and shared memory of kernel `which` (0 forward, 1 dQ,
-// 2 dK/dV, 3 the bf16 dK/dV's reduce kernel) for (dtype, D), as kernel_attrs
+// 2 dK/dV, 3 the bf16 dK/dV's reduce kernel, 4 the f32 delta kernel) for
+// (dtype, D), as kernel_attrs
 // writes them into out[8]; -1 for a variant that is not built.
 extern "C" int jf_train_attention_attrs(int which, int dtype, int D, int* out) {
   if (D == 64) return attrs<64>(which, dtype, out);

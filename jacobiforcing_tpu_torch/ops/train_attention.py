@@ -14,8 +14,8 @@ past pair `T` see and are seen by nothing.
     masked softmax in torch ops with autograd.  CPU tensors take it.
   * `classify_tiles`: which (query tile, key tile) pairs are empty, partial or
     full, worked out on the host from the layout scalars in O(L * L / key
-    tile), for 32-key tiles (the fp32 kernels, bf16 dQ) or 64-key tiles (the
-    bf16 tensor-core forward and dK/dV), with the lists each kernel walks.
+    tile), for 32-key tiles (the fp32 kernels) or 64-key tiles (the bf16
+    tensor-core kernels), with the lists each kernel walks.
   * `train_attention`: the dispatcher.  A CUDA tensor always takes the
     hand-written kernels (csrc/train_attention.cu: forward, dQ, dK/dV) through
     a `torch.autograd.Function`, and what they cannot serve raises.
@@ -37,8 +37,8 @@ import torch
 
 VARIANTS = ("single", "multiblock", "window")
 Q_ROWS = 64  # query rows (token-major (token, head-in-group) pairs) per query tile
-KEY_TILE = 32  # keys per key tile of the fp32 kernels and of bf16 dQ
-TC_KEY_TILE = 64  # keys per key tile of the bf16 tensor-core forward and dK/dV
+KEY_TILE = 32  # keys per key tile of the fp32 kernels
+TC_KEY_TILE = 64  # keys per key tile of the bf16 tensor-core kernels
 # The bf16 dK/dV kernel runs one CTA per (key tile, KV head, chunk of at most
 # C query tiles).  C = max(DKDV_MIN_CHUNK, ceil(E / DKDV_CHUNKS)), E the
 # non-empty (key tile, query tile) pairs of the layout: about DKDV_CHUNKS
@@ -135,8 +135,8 @@ class TileMap:
     group) order, so it spans tokens [64 i // G, (64 i + 63) // G]; a key tile
     is `key_tile` consecutive keys.  A list entry is `2 * tile + is_full`.
 
-    The tensor-core kernels walk two further lists.  The forward runs one CTA
-    per pair of query tiles (2p, 2p + 1), one per warpgroup, over the key
+    The tensor-core kernels walk two further lists.  The forward and dQ run
+    one CTA per pair of query tiles (2p, 2p + 1), one per warpgroup, over the key
     tiles either of them sees: `pair_ptr` / `pair_ent`, entry `16 * key tile
     + class of tile 2p + 4 * class of tile 2p + 1`, launched in `pair_order`.  dK/dV runs one CTA per
     chunk of a key tile's transposed list: `chunks` rows (key tile, first and

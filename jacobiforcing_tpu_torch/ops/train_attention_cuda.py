@@ -1,13 +1,13 @@
 """Wrappers of the hand-written CUDA training-attention kernels
-(csrc/train_attention.cu): forward, dQ (with the delta pre-pass) and dK/dV.
+(csrc/train_attention.cu): forward, dQ (with delta) and dK/dV.
 
 Port of the TPU kernel `jacobiforcing_tpu/ops/pallas/train_attention.py::
 splash_train_attention`, forward and backward; the plain version is
 `ops/train_attention.train_attention_ref` under autograd.  float32 inputs take
-the fp32 CUDA-core kernels (32-key tiles); bfloat16 inputs take the
-tensor-core forward and dK/dV (64-key tiles, `train_fwd_tc_kernel`,
-`train_dkdv_tc_kernel` + `train_dkdv_reduce_kernel`) and the fp32 dQ kernel
-(32-key tiles).  `layout` is
+the fp32 CUDA-core kernels (32-key tiles; dQ after a delta kernel); bfloat16
+inputs take the tensor-core kernels (64-key tiles, `train_fwd_tc_kernel`,
+`train_dq_tc_kernel` with delta folded in, `train_dkdv_tc_kernel` +
+`train_dkdv_reduce_kernel`).  `layout` is
 `(prompt_len, T_pairs, seq_len, N, variant, window_size)`.  Each wrapper
 checks device, dtype, shape and contiguity and raises on anything the kernels
 do not take; it launches on PyTorch's current stream, does not synchronise,
@@ -30,9 +30,9 @@ from jacobiforcing_tpu_torch.ops.train_attention import (
     KEY_TILE, TC_KEY_TILE, VARIANTS, TileMap, classify_tiles)
 
 _FNS = None
-# which kernel of the C interface: forward, dQ (with delta), dK/dV, and the
-# bf16 dK/dV's partial-sum kernel
-_WHICH = ("fwd", "dq", "dkdv", "dkdv_reduce")
+# which kernel of the C interface: forward, dQ (with delta), dK/dV, the bf16
+# dK/dV's partial-sum kernel and the f32 delta kernel
+_WHICH = ("fwd", "dq", "dkdv", "dkdv_reduce", "delta")
 
 
 def _kernels():
@@ -43,7 +43,7 @@ def _kernels():
                                      ctypes.c_void_p]
         fns = {}
         # dkdv: 13 pointers, then the chunk and reduce counts
-        for name, head in (("fwd", [ctypes.c_void_p] * 8), ("dq", [ctypes.c_void_p] * 10),
+        for name, head in (("fwd", [ctypes.c_void_p] * 8), ("dq", [ctypes.c_void_p] * 11),
                            ("dkdv", [ctypes.c_void_p] * 13 + [ctypes.c_int] * 2)):
             fn = getattr(lib, f"jf_train_attention_{name}")
             fn.argtypes = head + tail
@@ -108,7 +108,7 @@ def variants():
             for D in SUPPORTED_HEAD_DIMS:
                 buf = (ctypes.c_int * len(_ATTR_FIELDS))()
                 rc = fn(which, code, D, buf)
-                if rc == -1:  # not a kernel of this dtype (the reduce kernel of f32)
+                if rc == -1:  # not a kernel of this dtype (f32 reduce, bf16 delta)
                     continue
                 if rc != 0:
                     raise RuntimeError(f"jf_train_attention_attrs({name}, {dtype}, {D}) failed "
@@ -125,8 +125,20 @@ def _tiles(q, k, layout, key_tile=KEY_TILE) -> TileMap:
 
 
 def _tc(q) -> bool:
-    """bf16 inputs run the tensor-core forward and dK/dV on 64-key tiles."""
+    """bf16 inputs run the tensor-core kernels on 64-key tiles."""
     return q.dtype == torch.bfloat16
+
+
+def _query_lists(q, k, layout):
+    """The forward's and dQ's list pointers: bf16, one CTA per pair of query
+    tiles over 64-key tiles, launched longest list first (pair_ptr, pair_ent,
+    pair_order); f32, one CTA per query tile over 32-key tiles (q_ptr, q_ent,
+    no order)."""
+    if _tc(q):
+        lists = _tiles(q, k, layout, TC_KEY_TILE).device_lists(q.device)
+        return [lists[n].data_ptr() for n in ("pair_ptr", "pair_ent", "pair_order")]
+    lists = _tiles(q, k, layout).device_lists(q.device)
+    return [lists["q_ptr"].data_ptr(), lists["q_ent"].data_ptr(), None]
 
 
 def _call(name: str, args, q, k, layout) -> None:
@@ -147,29 +159,23 @@ def train_attention_fwd_cuda(q, k, v, layout) -> Tuple[torch.Tensor, torch.Tenso
     check_inputs(q, k, v, layout)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    if _tc(q):  # one CTA per pair of query tiles over 64-key tiles, longest first
-        lists = _tiles(q, k, layout, TC_KEY_TILE).device_lists(q.device)
-        lists = [lists[n].data_ptr() for n in ("pair_ptr", "pair_ent", "pair_order")]
-    else:
-        lists = _tiles(q, k, layout).device_lists(q.device)
-        lists = [lists["q_ptr"].data_ptr(), lists["q_ent"].data_ptr(), None]
-    _call("fwd", [t.data_ptr() for t in (q, k, v)] + lists + [out.data_ptr(), lse.data_ptr()],
-          q, k, layout)
+    _call("fwd", [t.data_ptr() for t in (q, k, v)] + _query_lists(q, k, layout)
+          + [out.data_ptr(), lse.data_ptr()], q, k, layout)
     train_attention_fwd_cuda.launches += 1
     return out, lse
 
 
 def train_attention_dq_cuda(q, k, v, out, lse, dout, layout) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dq [L, NH, D], delta [L, NH] float32 = rowsum(dout * out), taken by a
-    small kernel that this call launches first and the dK/dV call reads)."""
+    """(dq [L, NH, D], delta [L, NH] float32 = rowsum(dout * out), which the
+    dK/dV call reads).  bf16: one kernel over the forward's pair lists that
+    also takes delta; f32: a delta kernel, then the fp32 dQ kernel."""
     check_inputs(q, k, v, layout, [("out", out, q.shape, q.dtype),
                                    ("dout", dout, q.shape, q.dtype),
                                    ("lse", lse, q.shape[:2], torch.float32)])
-    lists = _tiles(q, k, layout).device_lists(q.device)
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
-    _call("dq", [t.data_ptr() for t in (q, k, v, out, dout, lse, lists["q_ptr"], lists["q_ent"],
-                                        dq, delta)], q, k, layout)
+    _call("dq", [t.data_ptr() for t in (q, k, v, out, dout, lse)] + _query_lists(q, k, layout)
+          + [dq.data_ptr(), delta.data_ptr()], q, k, layout)
     train_attention_dq_cuda.launches += 1
     return dq, delta
 

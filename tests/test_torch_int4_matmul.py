@@ -103,6 +103,86 @@ def test_kernel_wrapper_rejects_unsupported_inputs(change, match):
         i4c.int4_matmul_cuda(x, wp, scale)
 
 
+# (K, N): Qwen2.5-7B's four linear shapes, a few small and ragged ones
+PLAN_SHAPES = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584), (100, 96), (37, 160),
+               (520, 32), (300, 64)]
+
+
+@pytest.mark.parametrize("K,N", PLAN_SHAPES)
+def test_chunk_plan_depends_on_K_and_N_only_and_covers_K_once(K, N):
+    """The bf16 kernel's K chunks: multiples of the stage, ascending, covering
+    [0, K) exactly once, and the same whatever M (only the route and the x
+    rows per instruction follow M)."""
+    chunk, n = i4c.chunk_plan(K, N)
+    assert chunk > 0 and chunk % i4c.STAGE_K == 0 and n >= 1
+    bounds = [(i * chunk, min((i + 1) * chunk, K)) for i in range(n)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == K
+    assert all(a < b for a, b in bounds) and all(b == c for (_, b), (c, _) in zip(bounds, bounds[1:]))
+    for M in (1, 4, 8, 9, 64, 256, 1536):
+        bn, c, m, _ = i4c.plan(M, K, N)
+        assert (c, m) == (chunk, n) and bn == (8 if M <= 8 else 128)
+
+
+def test_bitwise_rows_shape_takes_both_routes():
+    """chip_smoke's bitwise-rows check (rows 700..703 of M 1536 against M 4 at
+    K 3584, N 512) compares the split route (n8, partials summed by the
+    reduce kernel) with the unsplit one (n128, chunks summed in registers)."""
+    small, large = i4c.plan(4, 3584, 512), i4c.plan(1536, 3584, 512)
+    assert small[2] > 1 and small[3] and not large[3]
+    assert (small[0], large[0]) == (8, 128)
+
+
+def tc_int4_emulation(x, w_packed, scale):
+    """The bf16 tensor-core kernel's arithmetic on CPU tensors: per K chunk of
+    `chunk_plan`, the chunk's sum from zero in float32 (the products of bf16
+    x and int4 weights summed exactly in float64 and rounded once, so a row's
+    chunk sum cannot depend on the other rows), the chunks added in ascending
+    order in float32, times the float32 scale, rounded to bf16.  Returns
+    (the float32 result before the rounding, the bf16 output)."""
+    M, K = x.shape
+    N = scale.shape[0]
+    chunk, n = i4c.chunk_plan(K, N)
+    w = unpack_int4(w_packed).double()
+    xd = x.double()
+    total = None
+    for i in range(n):
+        part = (xd[:, i * chunk : (i + 1) * chunk] @ w[i * chunk : (i + 1) * chunk]).float()
+        total = part if total is None else total + part
+    y = total * scale[None, :]
+    return y, y.bfloat16()
+
+
+@pytest.mark.parametrize("M,K,N", [(16, 256, 1024), (3, 100, 96), (70, 37, 160), (130, 520, 32),
+                                   (5, 300, 64)])
+def test_tensor_core_emulation_matches_pallas_interpret(M, K, N):
+    """The emulated bf16 kernel against the TPU kernel in interpret mode on
+    the same bf16-valued x (as float32): the float32 result within 2e-3 (the
+    JAX test's tolerance), the bf16 output within one more rounding (2^-7
+    relative, as test_ref_output_type_follows_x); ragged M and K, and K in
+    one to three chunks."""
+    x, wq, scale = _case(M, K, N, seed=M + K)
+    xb = torch.from_numpy(x).bfloat16()
+    wp = pack_int4(torch.from_numpy(wq))
+    want = np.asarray(ji4.int4_matmul(jnp.asarray(xb.float().numpy()), jnp.asarray(wp.numpy()),
+                                      jnp.asarray(scale), tile_n=N, interpret=True))
+    y, out = tc_int4_emulation(xb, wp, torch.from_numpy(scale))
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (M, N)
+    np.testing.assert_allclose(y.numpy(), want, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(out.float().numpy(), want, rtol=2.0**-7, atol=2e-3)
+
+
+@pytest.mark.parametrize("K,N", [(520, 32), (3584, 512)])
+def test_tensor_core_emulation_rows_do_not_depend_on_M(K, N):
+    """An emulated row has the same bits at M 4 and at M 64."""
+    x, wq, scale = _case(64, K, N, seed=K)
+    xb = torch.from_numpy(x).bfloat16()
+    wp = pack_int4(torch.from_numpy(wq))
+    st = torch.from_numpy(scale)
+    full = tc_int4_emulation(xb, wp, st)[1]
+    few = tc_int4_emulation(xb[40:44].contiguous(), wp, st)[1]
+    assert torch.equal(full[40:44].view(torch.int16), few.view(torch.int16))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():

@@ -337,9 +337,10 @@ def test_kernel_backward_matches_plain_on_cuda(cuda, dtype, layout):
         assert _within(g, r, scale=2e-5)
 
 
-def tc_train_emulation(q, k, v, dout, layout):
+def tc_train_emulation(q, k, v, dout, layout, with_dq=False):
     """The bf16 tensor-core kernels' arithmetic in plain torch on CPU tensors
-    q [L, NH, D], k/v [L, KH, D], dout [L, NH, D] (bf16): (out, dk, dv).
+    q [L, NH, D], k/v [L, KH, D], dout [L, NH, D] (bf16): (out, dk, dv), and
+    with `with_dq` (out, dk, dv, dq).
     Forward: `tc_tile_emulation` (64-key tiles, online softmax in the log2
     domain, P rounded to bf16 before P.V), and the log-sum-exp of the scaled
     scores.  dK/dV: delta = rowsum(dO * O) in float32; per chunk of a 64-key
@@ -348,7 +349,11 @@ def tc_train_emulation(q, k, v, dout, layout):
     P^T = exp2(scale_log2 S^T - lse log2 e) on the visible elements,
     dS^T = P^T (dP^T - delta), then dV += bf16(P^T).dO and dK += bf16(dS^T).Q
     in float32; a key tile's chunk partials summed in chunk order, dK scaled
-    once, both rounded to bf16."""
+    once, both rounded to bf16.  dQ: per pair of query tiles over its
+    pair_ent key tiles, ascending, a tile that is empty for a query tile
+    skipped; S = Q.K^T and dP = dO.V^T, P from the lse as above, dS = P (dP -
+    delta) with delta from the bf16 O, dQ += bf16(dS).K in float32, scaled
+    once, rounded to bf16."""
     from tests.test_torch_attention import tc_tile_emulation
 
     L, NH, D = q.shape
@@ -400,7 +405,27 @@ def tc_train_emulation(q, k, v, dout, layout):
             sk, sv = sk + pk, sv + pv
         dk[:, kt * 64 : kt * 64 + sk.shape[1]] = sk * scale
         dv[:, kt * 64 : kt * 64 + sv.shape[1]] = sv
-    return out, dk.permute(1, 0, 2).bfloat16(), dv.permute(1, 0, 2).bfloat16()
+    dk, dv = dk.permute(1, 0, 2).bfloat16(), dv.permute(1, 0, 2).bfloat16()
+    if not with_dq:
+        return out, dk, dv
+    dq = torch.zeros(KH, L * G, D)
+    for p in range(len(tm.pair_ptr) - 1):
+        for ent in tm.pair_ent[tm.pair_ptr[p] : tm.pair_ptr[p + 1]].tolist():
+            keys = slice((ent >> 4) * 64, min((ent >> 4) * 64 + 64, L))
+            for wg in range(2):
+                qt = 2 * p + wg
+                if (ent >> (2 * wg)) & 3 == ta.EMPTY or qt * 64 >= L * G:
+                    continue
+                r = slice(qt * 64, min(qt * 64 + 64, L * G))
+                st = qr[:, r] @ kf[:, keys].transpose(1, 2)  # S [KH, rows, keys]
+                dpt = dor[:, r] @ vf[:, keys].transpose(1, 2)
+                p_ = torch.where(vis[:, r, keys],
+                                 torch.exp2(st * c - lse[:, r, None] * 1.4426950408889634),
+                                 torch.zeros(()))
+                ds = p_ * (dpt - delta[:, r, None])
+                dq[:, r] += ds.bfloat16().float() @ kf[:, keys]
+    dq = (dq * scale).reshape(KH, L, G, D).permute(1, 0, 2, 3).reshape(L, NH, D)
+    return out, dk, dv, dq.bfloat16()
 
 
 # (L, prompt_len, T, seq_len, N, KH, G, D): prompt key tiles that span two and
@@ -431,3 +456,24 @@ def test_tensor_core_training_numerics_within_the_bf16_rule(case, variant, windo
     assert _within(out[live], ref[0][live])
     assert not bool(out[~live].any())
     assert _within(dk, ref[2]) and _within(dv, ref[3])
+
+
+@pytest.mark.parametrize("case", EMULATED, ids=lambda c: "L%d-P%d-T%d-S%d-N%d-KH%d-G%d-D%d" % c)
+@pytest.mark.parametrize("variant,window", VARIANTS)
+def test_tensor_core_dq_numerics_within_the_bf16_rule(case, variant, window):
+    """The emulated tensor-core dQ (the forward's pair lists, delta from the
+    bf16 O, dS rounded to bf16 before dS.K) held to autograd of the plain
+    version in float32 on the same bf16 inputs under chip_smoke's bf16 rule
+    (`check_grad`); rows that see nothing get zero dq."""
+    L, P, T, S, N, KH, G, D = case
+    q, k, v, dout = (torch.from_numpy(a).bfloat16()
+                     for a in _inputs(L, KH * G, KH, D, np.float32, seed=L + D))
+    live = torch.from_numpy(_live_rows(L, P, T, S, N))
+    dout = dout * live[:, None, None].bfloat16()
+    dq = tc_train_emulation(q, k, v, dout, (P, T, S, N, variant, window), with_dq=True)[3]
+    kw = dict(prompt_len=P, T_pairs=T, seq_len=S, N=N, variant=variant, window_size=window)
+    ref = _port_grads(ta.train_attention_ref, q.float().numpy(), k.float().numpy(),
+                      v.float().numpy(), dout.float().numpy(), **kw)
+    assert dq.dtype == torch.bfloat16 and tuple(dq.shape) == tuple(q.shape)
+    assert _within(dq, torch.from_numpy(ref[1]))
+    assert not bool(dq[~live].any())
