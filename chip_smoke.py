@@ -59,18 +59,30 @@ result line):
      the same checkpoint served quantized (int8 weights, W8A8, an fp8 and an
      int8 KV cache): inside each engine `jacobi` == `ar` == `mr`, counts
      printed beside the JAX package's CPU runs.
-  5. `full`: Qwen2.5-7B widths with random bf16 weights, 4 requests of
+  5. `sampling`: the rejection-sampling and on-policy decoders on the demo
+     checkpoint in f32: non-greedy top_k=1 == `ar` on the 64 prompts (2033
+     tokens, 64/64 EOS); greedy on-policy collection of the 64 prompts
+     (final sequences == `ar`, snapshots 32 long, rows == the JAX CPU
+     anchor); non-greedy at temperature 0.7 through `bench_generate.run`
+     beside the JAX CPU seed spread, >= 1 token per iteration, one seed one
+     stream; the first-token TV of non-greedy against AR sampling at
+     temperature 1.0; the W8A8 engine's non-greedy top_k=1 == its greedy
+     stream; `apps/validate_learning` at its defaults.  Every run zeroes the
+     kernel counts first and fails unless the paged kernel ran and no plain
+     attention ran on CUDA.
+  6. `full`: Qwen2.5-7B widths with random bf16 weights, 4 requests of
      256-1024 random prompt tokens through `LLM.generate`: prefill, AR,
-     Jacobi and MR (policy off).  Each kernel's launch count is zeroed before
-     each path and must grow in the paths that run it; the JSON line reports
-     the Jacobi run's count for the paged kernel and the MR run's for the
-     speculative one.
-  6. `full_quant`: Qwen2.5-7B widths with random int8 weights
+     Jacobi, MR (policy off), non-greedy at temperature 0.7 (the
+     memory-light verify, then top_k=50) and on-policy rollouts at 0.7.
+     Each kernel's launch count is zeroed before each path and must grow in
+     the paths that run it; the JSON line reports the Jacobi run's count for
+     the paged kernel and the MR run's for the speculative one.
+  7. `full_quant`: Qwen2.5-7B widths with random int8 weights
      (`init_quantized_params`), the same 4 requests: W8A8 with an fp8 KV cache
      under `ar`, `jacobi` and `mr`, then weight-only int8 with an int8 KV
      cache under `jacobi`; launch counts as in `full`, tok/s, iterations/s,
      peak memory, and the device-time split of a profiled run.
-  7. `train`: the consistency trainer through `train(TrainerArgs(...))` with
+  8. `train`: the consistency trainer through `train(TrainerArgs(...))` with
      `attn_impl="splash"`.  (a) the demo checkpoint's widths in f32 from random
      weights: rows from `synthesize_trajectories_masking` ->
      `pack_trajectories` -> `JacobianDataset`; the first step's losses and
@@ -1219,7 +1231,7 @@ MR_STATS = ("mr_full", "mr_nocand", "mr_ra_only", "mr_single")
 def demo_llm(meta, **kw):
     from jacobiforcing_tpu_torch.engine.llm import LLM
 
-    return LLM(model=DEMO, device="cuda", dtype=torch.float32, kvcache_page_size=16,
+    return LLM(model=DEMO, device=DEV, dtype=torch.float32, kvcache_page_size=16,
                max_model_len=512, jacobi_chunk_tokens=64, eos=int(meta["eos"]),
                prefill_token_buckets=(32, 64, 128, 256, 512), num_kv_pages=1024, **kw)
 
@@ -1383,6 +1395,212 @@ def phase_demo_quant(counter, launches_out):
         raise AssertionError("quantized demo engines: " + "; ".join(faults))
 
 
+# The JAX package's runs in f32 on the CPU (`python -m
+# tests.torch_sampling_demo_anchors`): the demo checkpoint's non-greedy Jacobi
+# at temperature 0.7 (N=32, max_tokens 96, 64 held-out prompts one at a time)
+# for engine seeds 0 / 1 / 2 -> (tokens, EOS, TPF); greedy on-policy collection
+# of the 64 prompts in one call -> rows, tokens, iterations; validate_learning
+# at its defaults with the tiny model at head_dim 64 (the port app's) -> TPF
+# before and after.
+NONGREEDY_ANCHORS = {0: (2057, 64, 4.6225), 1: (2044, 64, 4.4435), 2: (2022, 64, 4.4735)}
+COLLECT_ANCHOR = dict(rows=87, tokens=2033, iterations=550)
+LEARNING_ANCHOR = dict(tpf_before=1.0753, tpf_after=1.1982)
+
+
+def onpolicy_kernel_check():
+    """Kernel 1 at the on-policy forward's shape against its plain version:
+    L + 1 query rows from position cur_len - 1, cache_lens = cur_len +
+    remaining with `remaining` ragged in [1, L], so the tail rows sit past
+    cache_lens.  Every row, the tail's too, must agree (rules of `check`);
+    f32 and bf16, the demo's heads (D 64, KH 2, G 2, L 32) and Qwen2.5-7B's
+    (D 128, KH 4, G 7, L 64)."""
+    for (KH, G, D, L, page), dtype in [(h, d) for h in ((2, 2, 64, 32, 16), (4, 7, 128, 64, 256))
+                                       for d in (torch.float32, torch.bfloat16)]:
+        c = make_case(4, L + 1, KH, G, D, page, 700, dtype, seed=D + L)
+        r = np.random.RandomState(L)
+        cur = c["clen"] - L  # >= 1: make_case draws lengths >= L + 1
+        c["pos"] = (cur - 1)[:, None] + torch.arange(L + 1, device="cuda", dtype=torch.int32)
+        c["clen"] = cur + torch.from_numpy(r.randint(1, L + 1, size=4).astype(np.int32)).cuda()
+        err, worst, ok = check(run_kernel(c), run_plain(c))
+        log(f"[sampling] on-policy shape, kernel 1 vs plain: D={D} KH={KH} G={G} rows {L + 1} "
+            f"{str(dtype)[6:]}: cache_lens {c['clen'].tolist()}, last positions "
+            f"{c['pos'][:, -1].tolist()}; max_abs_err {err:.3g}, err/tol {worst:.3f}: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"kernel 1 at the on-policy shape D={D} {dtype}: err/tol {worst}")
+
+
+def phase_sampling(counter, launches_out):
+    """Kernel 1 at the on-policy forward's shape (`onpolicy_kernel_check`),
+    then the rejection-sampling and on-policy decoders on the demo checkpoint
+    in f32, each run with every kernel count zeroed before it and read after
+    it (it fails unless the paged kernel ran and no plain attention ran on
+    CUDA):
+      * non-greedy top_k=1 on all 64 held-out prompts == the `ar` stream
+        (2033 tokens, 64/64 EOS);
+      * greedy on-policy collection (`collect_trajectories`, N 32, max_tokens
+        96) of the 64 prompts in one call: final sequences == the `ar`
+        streams, every snapshot 32 long, rows == the JAX CPU anchor;
+      * non-greedy at temperature 0.7 through `bench_generate.run`: tokens,
+        EOS and TPF beside the JAX CPU seed spread, >= 1 token per iteration
+        per request, and the same seed twice gives the same stream;
+      * 512 first tokens of non-greedy against AR sampling at temperature 1.0:
+        TV < max(2 x AR-vs-AR noise, noise + 0.08);
+      * the demo checkpoint served W8A8: non-greedy top_k=1 == that engine's
+        greedy stream on 16 prompts;
+      * `apps/validate_learning` at its defaults on the card: TPF before and
+        after, improvement > 1 where the JAX CPU run shows one."""
+    from jacobiforcing_tpu_torch.apps import bench_generate, validate_learning
+    from jacobiforcing_tpu_torch.config import SamplingParams
+    from jacobiforcing_tpu_torch.data import collect_trajectories
+
+    with open(os.path.join(DEMO, "tpf_demo.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(DEMO, "heldout_prompts.jsonl")) as f:
+        prompts = [json.loads(line)["prompt_ids"] for line in f]
+    n, L, eos_id = int(meta["max_tokens"]), int(meta["block_len"]), int(meta["eos"])
+    faults = []
+    onpolicy_kernel_check()
+
+    def counted(name, fn):
+        """Run `fn` with the kernel counts zeroed; print and check its launches."""
+        zero_counts(counter)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = launches_out[f"sampling_{name}"] = read_counts()
+        log(f"[sampling] {name}: wall {dt:.2f}s; kernel launches "
+            f"{ {k: v for k, v in launches.items() if v} }; plain attention calls on CUDA: "
+            f"{counter.n}")
+        if launches["paged_attention"] <= 0 or counter.n or launches["spec_attention"]:
+            faults.append(f"{name} did not go through the paged kernel alone")
+        return out
+
+    def sp(**kw):
+        base = dict(temperature=0.7, max_tokens=n, decode_strategy="jacobi_nongreedy",
+                    jacobi_block_len=L, jacobi_max_blocks=1, jacobi_max_iterations=1 << 20)
+        base.update(kw)
+        return SamplingParams(**base)
+
+    def one_by_one(llm, params):
+        return [llm.engine.generate([p], params)[0]["token_ids"] for p in prompts]
+
+    def streams_equal(name, got, want):
+        diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        toks = sum(len(o) for o in got)
+        n_eos = sum(bool(o) and o[-1] == eos_id for o in got)
+        log(f"[sampling] {name}: {len(got)} prompts, total_tokens={toks} eos={n_eos}/{len(got)}; "
+            f"== the greedy stream: {not diff} (rows differing: {diff})")
+        if diff or len(got) != len(want):
+            faults.append(f"{name}: streams differ from the greedy stream in rows {diff}")
+        return toks, n_eos
+
+    llm = demo_llm(meta)
+    ar = counted("demo ar", lambda: one_by_one(llm, sp(temperature=0.0,
+                                                        decode_strategy="autoregressive")))
+    ng1 = counted("demo nongreedy top_k=1",
+                  lambda: one_by_one(llm, sp(temperature=0.7, top_k=1)))
+    if streams_equal("demo nongreedy top_k=1", ng1, ar) != (DEMO_TOKENS, 64):
+        faults.append(f"demo nongreedy top_k=1: want {DEMO_TOKENS} tokens, 64/64 EOS")
+
+    rows = counted("demo greedy on-policy collection",
+                   lambda: collect_trajectories(llm.engine, prompts, block_len=L, max_tokens=n))
+    final = {r["data_id"]: r["teacher_output_ids"] for r in rows}
+    got = [final[f"data_{i}"][len(p):] for i, p in enumerate(prompts)]
+    streams_equal("demo greedy on-policy collection (final sequences)", got, ar)
+    iters = sum(len(r["answer_trajectory_ids"]) - 1 for r in rows)
+    toks = sum(len(g) for g in got)
+    lens_ok = all(len(s) == L for r in rows for s in r["answer_trajectory_ids"])
+    log(f"[sampling] demo greedy on-policy collection: {len(rows)} rows, {toks} tokens, {iters} "
+        f"iterations (TPF {toks / max(iters, 1):.4f}); every snapshot {L} long: {lens_ok}; the "
+        f"JAX package on the CPU: {COLLECT_ANCHOR['rows']} rows, {COLLECT_ANCHOR['tokens']} "
+        f"tokens, {COLLECT_ANCHOR['iterations']} iterations")
+    if not lens_ok or len(rows) != COLLECT_ANCHOR["rows"]:
+        faults.append(f"greedy collection: {len(rows)} rows (want {COLLECT_ANCHOR['rows']}), "
+                      f"snapshots of length {L}: {lens_ok}")
+    llm.exit()
+
+    # non-greedy at temperature 0.7 through the app, seed 0 twice
+    spread = sorted(a[2] for a in NONGREEDY_ANCHORS.values())
+    runs = []
+    for rep in range(2):
+        llm = demo_llm(meta, seed=0)
+        args = bench_generate.make_parser().parse_args([])
+        args.strategy, args.temperature = "nongreedy", 0.7
+        args.n_token_seq_len, args.max_blocks = L, 1
+        args.max_new_tokens, args.max_iterations = n, 1 << 20
+        args.dataset = os.path.join(DEMO, "heldout_prompts.jsonl")
+        args.output_dir = tempfile.mkdtemp(prefix="chip_smoke_ng_", dir=os.path.join(REPO, "build"))
+        agg, profiles = counted(f"demo nongreedy T=0.7 seed 0, run {rep + 1}",
+                                lambda: bench_generate.run(args, engine=llm.engine))
+        with open(os.path.join(args.output_dir, "generations_nongreedy.jsonl")) as f:
+            runs.append([json.loads(line)["token_ids"] for line in f])
+        shutil.rmtree(args.output_dir, ignore_errors=True)
+        slow = [p["index"] for p in profiles if p["new_tokens"] < p["total_iterations"]]
+        log(f"[sampling] demo nongreedy T=0.7 seed 0, run {rep + 1}: total_tokens="
+            f"{agg['total_tokens']} eos={agg['n_eos_terminated']}/{agg['n_examples']} "
+            f"aggregate_tpf={agg['aggregate_tokens_per_forward']}; the JAX package on the CPU, "
+            f"seeds 0 / 1 / 2: {list(NONGREEDY_ANCHORS.values())} (tokens, EOS, TPF; TPF "
+            f"{spread[0]}-{spread[-1]}); requests with fewer tokens than iterations: {slow}")
+        if slow:
+            faults.append(f"nongreedy T=0.7: requests {slow} committed < 1 token per iteration")
+        llm.exit()
+    log(f"[sampling] demo nongreedy T=0.7: the same seed gave the same stream: "
+        f"{runs[0] == runs[1]}")
+    if runs[0] != runs[1]:
+        faults.append("nongreedy T=0.7: one seed gave two streams")
+
+    # the first-token marginal against AR sampling at temperature 1.0
+    def first_tokens(seed, params, k=512, batch=64):
+        llm = demo_llm(meta, seed=seed)
+        out = []
+        for _ in range(k // batch):
+            out += [o["token_ids"][0] for o in llm.generate([prompts[0]] * batch, params)]
+        llm.exit()
+        return out
+
+    def tv(a, b):
+        ha = np.bincount(a, minlength=256) / len(a)
+        hb = np.bincount(b, minlength=256) / len(b)
+        return 0.5 * float(np.abs(ha - hb).sum())
+
+    sp_ar = sp(temperature=1.0, max_tokens=3, decode_strategy="autoregressive")
+    ar1 = counted("demo TV: ar T=1.0 seed 0", lambda: first_tokens(0, sp_ar))
+    ar2 = counted("demo TV: ar T=1.0 seed 1", lambda: first_tokens(1, sp_ar))
+    rs = counted("demo TV: nongreedy T=1.0 seed 2",
+                 lambda: first_tokens(2, sp(temperature=1.0, max_tokens=3)))
+    noise, dist = tv(ar1, ar2), tv(ar1, rs)
+    ok = dist < max(2.0 * noise, noise + 0.08)
+    log(f"[sampling] demo first-token TV, 512 samples each: nongreedy vs ar {dist:.4f}, ar vs ar "
+        f"(noise) {noise:.4f}; {len(set(ar1))} distinct first tokens; within max(2 x noise, "
+        f"noise + 0.08): {ok}")
+    if not ok:
+        faults.append(f"TV {dist:.4f} against noise {noise:.4f}")
+
+    # the demo checkpoint served W8A8
+    llm = demo_llm(meta, quantization="w8a8")
+    greedy = counted("demo w8a8 jacobi", lambda: [
+        llm.engine.generate([p], sp(temperature=0.0, decode_strategy="jacobi"))[0]["token_ids"]
+        for p in prompts[:16]])
+    ng = counted("demo w8a8 nongreedy top_k=1", lambda: [
+        llm.engine.generate([p], sp(top_k=1))[0]["token_ids"] for p in prompts[:16]])
+    streams_equal("demo w8a8 nongreedy top_k=1", ng, greedy)
+    llm.exit()
+
+    # the whole JacobiForcing loop at the app's defaults
+    res = counted("validate_learning", lambda: validate_learning.run(
+        validate_learning.make_parser().parse_args(["--device", DEV])))
+    want_gain = LEARNING_ANCHOR["tpf_after"] > LEARNING_ANCHOR["tpf_before"]
+    log(f"[sampling] validate_learning at its defaults: tpf_before {res['tpf_before']}, "
+        f"tpf_after {res['tpf_after']}, improvement {res['improvement']}, history "
+        f"{res['history']}; the JAX package on the CPU: {LEARNING_ANCHOR}")
+    if want_gain and not res["improvement"] > 1:
+        faults.append(f"validate_learning: no TPF gain ({res})")
+    if faults:
+        raise AssertionError("sampling: " + "; ".join(faults))
+
+
 def full_width_sps():
     from jacobiforcing_tpu_torch.config import SamplingParams
 
@@ -1393,7 +1611,22 @@ def full_width_sps():
         "mr": SamplingParams(temperature=0.0, max_tokens=128, decode_strategy=MR,
                              jacobi_block_len=64, jacobi_max_blocks=2,
                              jacobi_n_gram_pool_size=4, jacobi_max_iterations=1 << 20),
+        # rejection-sampling Jacobi: the memory-light verify (V = 152,064 runs
+        # chunked_token_logprob over 5 vocab chunks) and the top-k route over
+        # [B, L-1, V]; on-policy rollouts (2 blocks of 64)
+        "nongreedy": SamplingParams(temperature=0.7, max_tokens=128,
+                                    decode_strategy="jacobi_nongreedy", jacobi_block_len=64,
+                                    jacobi_max_iterations=1 << 20),
+        "nongreedy_top_k50": SamplingParams(temperature=0.7, top_k=50, max_tokens=128,
+                                            decode_strategy="jacobi_nongreedy",
+                                            jacobi_block_len=64, jacobi_max_iterations=1 << 20),
+        "on_policy": SamplingParams(temperature=0.7, max_tokens=128,
+                                    decode_strategy="jacobi_on_policy", jacobi_block_len=64,
+                                    jacobi_max_iterations=1 << 20),
     }
+
+
+GREEDY_PATHS = ("autoregressive", "jacobi", "mr")
 
 
 def serve_paths(tag, llm, prompts, sps, counter, shape_out):
@@ -1415,14 +1648,18 @@ def serve_paths(tag, llm, prompts, sps, counter, shape_out):
     launches["prefill"], plain_on_cuda["prefill"] = read_counts(), counter.n
     log(f"[{tag}] prefill of 4 prompts (2560 tokens, cold) {prefill_ms:.1f} ms; kernel launches "
         f"{launches['prefill']}; plain attention calls on CUDA: {counter.n}")
+    peak = torch.cuda.max_memory_allocated()
     for strategy, sp in sps.items():
         stats0 = dict(llm.stats)
         zero_counts(counter)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         outs = llm.generate(prompts, sp)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        path_peak = torch.cuda.max_memory_allocated()
+        peak = max(peak, path_peak)
         launches[strategy], plain_on_cuda[strategy] = read_counts(), counter.n
         streams[strategy] = [o["token_ids"] for o in outs]
         toks = sum(len(s) for s in streams[strategy])
@@ -1444,8 +1681,8 @@ def serve_paths(tag, llm, prompts, sps, counter, shape_out):
             shape_out["mr_main_shape"] = {
                 "mr_ra_only": "T64", "mr_nocand": "T128", "mr_full": "T384",
             }[max(tiers, key=tiers.get)]
-        log(line + f"; kernel launches {launches[strategy]}; plain attention calls on CUDA: "
-            f"{counter.n}")
+        log(line + f"; peak memory {path_peak / 2**30:.2f} GiB; kernel launches "
+            f"{launches[strategy]}; plain attention calls on CUDA: {counter.n}")
     for other in [name for name in ("jacobi", "mr") if name in sps and "autoregressive" in sps]:
         pairs = list(zip(streams["autoregressive"], streams[other]))
         match = [sum(x == y for x, y in zip(a[:128], b[:128])) / max(min(len(a), len(b), 128), 1)
@@ -1455,8 +1692,7 @@ def serve_paths(tag, llm, prompts, sps, counter, shape_out):
         log(f"[{tag}] AR vs {other} first-128-token match rate per request: "
             f"{[round(m, 4) for m in match]} (first differing index {first_diff}); bf16 "
             f"near-ties on a random model make this a reported number, not a gate")
-    log(f"[{tag}] peak torch.cuda.max_memory_allocated = "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[{tag}] peak torch.cuda.max_memory_allocated = {peak / 2**30:.2f} GiB")
     lens_ok = all(len(s) == 128 for v in streams.values() for s in v)
     missed = [p for p in launches if launches[p]["paged_attention"] <= 0 or plain_on_cuda[p]]
     if "mr" in sps and launches["mr"]["spec_attention"] <= 0:
@@ -1467,6 +1703,31 @@ def serve_paths(tag, llm, prompts, sps, counter, shape_out):
         raise AssertionError(f"{tag}: paths {missed} did not run through the kernels alone, "
                              f"or a request came up short of 128 tokens ({lens_ok=})")
     return streams, launches, plain_on_cuda
+
+
+def alternating_rates(llm, prompts, sps, names):
+    """Host-bound paths jump between runs, so compare them in turns: each of
+    `names` once forward and once backward (J N K O O K N J for four), with
+    iterations/s, TPF and peak memory of every run on a line."""
+    rates = {name: [] for name in names}
+    for name in list(names) + list(names)[::-1]:
+        stats0 = dict(llm.stats)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs = llm.generate(prompts, sps[name])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fwds = llm.stats["chunk_forwards"] - stats0["chunk_forwards"]
+        iters = llm.stats["jacobi_iterations"] - stats0["jacobi_iterations"]
+        toks = sum(len(o["token_ids"]) for o in outs)
+        rates[name].append(fwds / wall)
+        log(f"[sampling] full width in turns, {name}: {fwds / wall:.2f} iterations/s, "
+            f"{toks / wall:.2f} tok/s, TPF {toks / max(iters, 1):.3f}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    base = sum(rates[names[0]]) / len(rates[names[0]])
+    log("[sampling] full width in turns, mean iterations/s against " + names[0] + ": " + ", ".join(
+        f"{n} {sum(r) / len(r):.2f} ({sum(r) / len(r) / base:.3f}x)" for n, r in rates.items()))
 
 
 def full_width_prompts(cfg):
@@ -1494,7 +1755,11 @@ def phase_full_width(counter, launches_out):
     prompts = full_width_prompts(cfg)
     sps = full_width_sps()
     _, launches, _ = serve_paths("full", llm, prompts, sps, counter, launches_out)
-    for name in ("jacobi", "mr"):
+    for name in ("nongreedy", "nongreedy_top_k50", "on_policy"):
+        log(f"[sampling] full width {name}: paged-kernel launches "
+            f"{launches[name]['paged_attention']}, speculative {launches[name]['spec_attention']}")
+    alternating_rates(llm, prompts, sps, ("jacobi", "nongreedy", "nongreedy_top_k50", "on_policy"))
+    for name in ("jacobi", "mr", "nongreedy"):
         profile_decode(llm, prompts, name, sps[name])
     llm.exit()
     del llm  # the KV pool goes; the weights stay for the `train` phase
@@ -1526,7 +1791,7 @@ def phase_full_quant(counter, launches_out):
         f"{nbytes / 2**30:.2f} GiB, in {time.perf_counter() - t0:.1f}s ({held:.2f} GiB held by "
         f"earlier phases)")
     prompts = full_width_prompts(cfg)
-    sps = full_width_sps()
+    sps = {k: v for k, v in full_width_sps().items() if k in GREEDY_PATHS}
     engines = [("w8a8_fp8", dict(quantization="w8a8", kv_cache_dtype="fp8"), sps),
                ("int8_int8", dict(quantization="int8", kv_cache_dtype="int8"),
                 {"jacobi": sps["jacobi"]})]
@@ -1565,8 +1830,10 @@ def profile_decode(llm, prompts, name, sp, tag=""):
     from torch.profiler import ProfilerActivity, profile
 
     sp = replace(sp, max_tokens=12)
-    # prompts that are not prefix-cached, and not shared between the strategies
-    prompts = [p[::-1] if name == "jacobi" else p[1:][::-1] for p in prompts]
+    # prompts that are not prefix-cached and share no first page between the
+    # strategies (the reversed prompt rotated by k: its pages hash apart)
+    k = ("jacobi", "mr", "nongreedy").index(name)
+    prompts = [p[::-1][k:] + p[::-1][:k] for p in prompts]
     fwd0 = llm.stats["chunk_forwards"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2008,7 +2275,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phases = (sys.argv[1].split(",") if len(sys.argv) > 1
-              else ["kernel", "train_kernel", "demo", "full", "full_quant", "train"])
+              else ["kernel", "train_kernel", "demo", "sampling", "full", "full_quant", "train"])
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
@@ -2046,6 +2313,8 @@ def main() -> int:
     if "demo" in phases:
         run("demo", phase_demo, counter, launches)
         run("demo (quantized engines)", phase_demo_quant, counter, launches)
+    if "sampling" in phases:
+        run("sampling", phase_sampling, counter, launches)
     if "full" in phases:
         params = run("full", phase_full_width, counter, launches)
     if "full_quant" in phases:

@@ -1,13 +1,13 @@
-"""Benchmark/eval script: AR vs Jacobi generation with per-example profiles.
+"""Benchmark/eval script: AR vs Jacobi vs MR generation with per-example profiles.
 
 Copy of `jacobiforcing_tpu/apps/bench_generate.py` for the PyTorch port:
 the same prompt construction, the same evalchemy-compatible JSONL
 generations, the same CSV per-example profile columns and the same EOS-only
 aggregate summary, so the two packages' summaries compare field by field.
-`run(args, engine=None)` builds the port's `LLM` on `args.device`.  The port
-serves the `ar`, `jacobi` and `mr` (multiblock with rejection recycling)
-strategies; `--max-blocks`, `--spawn-ratio`, `--lookahead-start-ratio` and
-`--n-gram-pool-size` shape `mr`; `--quantization int8|w8a8` and
+`run(args, engine=None)` builds the port's `LLM` on `args.device`.  The
+strategies are `ar`, `jacobi`, `mr` (multiblock with rejection recycling) and
+`nongreedy` (rejection-sampling Jacobi at `--temperature`); `--max-blocks`,
+`--spawn-ratio`, `--lookahead-start-ratio` and `--n-gram-pool-size` shape `mr`; `--quantization int8|w8a8` and
 `--kv-cache-dtype fp8|int8|bf16` serve the model quantized.
 
 Usage:
@@ -20,6 +20,9 @@ Usage:
     python -m jacobiforcing_tpu_torch.apps.bench_generate \
         --model /path/to/ckpt --dataset prompts.jsonl --strategy jacobi \
         --quantization w8a8 --kv-cache-dtype fp8 --output-dir out/
+    python -m jacobiforcing_tpu_torch.apps.bench_generate \
+        --model /path/to/ckpt --dataset prompts.jsonl --strategy nongreedy \
+        --temperature 0.7 --n-token-seq-len 64 --output-dir out/
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ STRATEGIES = {
     "ar": "autoregressive",
     "jacobi": "jacobi",
     "mr": "jacobi_multiblock_rejection_recycling",
+    "nongreedy": "jacobi_nongreedy",
 }
 
 

@@ -1,17 +1,20 @@
 """Engine configuration and per-request sampling parameters (PyTorch port).
 
 A copy of `jacobiforcing_tpu/config.py`: the same fields and defaults, so a
-configuration reads the same in both packages.  The port serves greedy
-autoregressive, single-block Jacobi and multiblock (MR) decoding, so the MR
-options (`pad`, the `jacobi_mr_*` auto-policy fields, the spawn / lookahead /
-pool fields) are read as in the JAX engine, and so are `quantization` ("int8"
-weight-only, "w8a8") and `kv_cache_dtype` ("fp8", "int8", "bf16"); any other
-string there raises `ValueError`.  Options the port does not serve yet raise
-`NotImplementedError` when set instead of being ignored: tensor/data
-parallelism, the one-chunk-lag async host pipeline, and the options that only
-the non-greedy and on-policy decoders read.  The XLA compilation-cache and
-TPU memory-sizing fields have no counterpart here, nor do `jacobi_enabled`
-and `enforce_eager`, which neither package reads.
+configuration reads the same in both packages.  The port serves every decode
+strategy of the JAX engine: autoregressive (greedy or sampled), greedy
+single-block Jacobi, rejection-sampling Jacobi (`jacobi_nongreedy`, shaped by
+`top_k` / `top_p`), on-policy rollouts (`jacobi_on_policy`, with
+`jacobi_accept_threshold` and the `stop_token_ids` stop set) and multiblock
+(MR) decoding, so the MR options (`pad`, the `jacobi_mr_*` auto-policy fields,
+the spawn / lookahead / pool fields) are read as in the JAX engine, and so are
+`quantization` ("int8" weight-only, "w8a8") and `kv_cache_dtype` ("fp8",
+"int8", "bf16"); any other string there raises `ValueError`.  Options the
+port does not serve yet raise `NotImplementedError` when set instead of being
+ignored: tensor/data parallelism and the one-chunk-lag async host pipeline.
+The XLA compilation-cache and TPU memory-sizing fields have no counterpart
+here, nor do `jacobi_enabled` and `enforce_eager`, which neither package
+reads.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ class Config:
     data_parallel_size: int = 1
     eos: int = -1
     pad: int = -1
+    # Extra stop tokens for on-policy rollouts (the config's eos joins them).
     stop_token_ids: tuple = ()
     # Paged KV cache: any page size that is a multiple of 16.
     kvcache_page_size: int = 256
@@ -102,7 +106,6 @@ class Config:
             "tensor_parallel_size": 1,
             "data_parallel_size": 1,
             "jacobi_async_host": False,
-            "stop_token_ids": (),  # read only by the on-policy decoder
         })
         if self.model:
             self.model_path = resolve_checkpoint_dir(self.model)
@@ -132,8 +135,8 @@ class SamplingParams:
     max_tokens: int = 64
     ignore_eos: bool = False
 
-    # "autoregressive" | "jacobi" | "jacobi_multiblock_rejection_recycling"
-    # (the strategies this port serves, all greedy for the Jacobi ones)
+    # "autoregressive" | "jacobi" | "jacobi_nongreedy" | "jacobi_on_policy" |
+    # "jacobi_multiblock_rejection_recycling" ("jacobi" and MR are greedy)
     decode_strategy: str = "autoregressive"
 
     jacobi_block_len: int = 64
@@ -143,19 +146,17 @@ class SamplingParams:
     jacobi_n_gram_pool_size: int = 4
     jacobi_max_iterations: int = 128
 
+    # Emit training rollout records instead of plain generations
+    # (reference: jacobi_decoding_nongreedy_on_policy.py).
     jacobi_on_policy: bool = False
+    # On-policy collection acceptance: 0 = rejection sampling; > 0 accepts a
+    # drafted token deterministically when p(x) >= threshold.
     jacobi_accept_threshold: float = 0.0
 
     def __post_init__(self):
         assert self.temperature >= 0.0
-        # top-k / top-p shape only the non-greedy Jacobi target; on-policy
-        # rollouts are their own decoder.  Neither is ported yet.
-        _reject_unported(self, {
-            "top_k": -1,
-            "top_p": 1.0,
-            "jacobi_on_policy": False,
-            "jacobi_accept_threshold": 0.0,
-        })
+        if self.jacobi_on_policy:
+            assert self.temperature > 0.0, "on-policy rollouts require temperature > 0"
 
     @property
     def greedy(self) -> bool:

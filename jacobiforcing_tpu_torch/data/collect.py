@@ -15,9 +15,9 @@ from a lookback context window.
 
 The PyTorch port's own copy of `jacobiforcing_tpu/data/collect.py` (host code
 with no array framework in it); `tests/test_torch_data.py` holds it to the
-original.  `collect_trajectories` asks the engine for the `jacobi_on_policy`
-strategy, which the port's engine refuses until it is ported; the
-masking-based synthesis needs no engine.
+original.  `collect_trajectories` runs against the port's `LLM` / `LLMEngine`
+(its `jacobi_on_policy` strategy); the masking-based synthesis needs no
+engine.
 """
 
 from __future__ import annotations

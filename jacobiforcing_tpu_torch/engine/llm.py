@@ -15,6 +15,12 @@ configure the engine; the rest (`device`, `dtype`, `num_kv_pages`, `kv_dtype`,
 `quantization` is "int8" (weight-only) or "w8a8"; `kv_cache_dtype` is "fp8",
 "int8" or "bf16".  Every greedy strategy runs inside each, with identical
 token streams.
+
+Sampled decoding: `SamplingParams(temperature=0.7, decode_strategy="jacobi")`
+(or "jacobi_nongreedy", with `top_k` / `top_p`) runs rejection-sampling
+Jacobi; `decode_strategy="jacobi_on_policy"` runs on-policy rollouts and adds
+`rollout_records` to each output (temperature 0 is the greedy trajectory
+collector of `data/collect.collect_trajectories`).
 """
 
 from __future__ import annotations
@@ -61,9 +67,8 @@ class LLM:
             updates["jacobi_max_iterations"] = jacobi_max_iterations
         if updates:
             sp = replace(sp, **updates)
-        if sp.decode_strategy == "jacobi" and sp.temperature > 0:
-            # the JAX API routes this to the non-greedy decoder, which the
-            # port does not serve yet: the engine raises for it
+        if sp.decode_strategy == "jacobi" and sp.temperature > 0 and not sp.jacobi_on_policy:
+            # a sampled Jacobi request takes the rejection-sampling decoder
             sp = replace(sp, decode_strategy="jacobi_nongreedy")
 
         if prompts and isinstance(prompts[0], str):

@@ -1,26 +1,34 @@
 """Engine core: request admission, batched prefill/decode dispatch, retirement.
 
-PyTorch port of `jacobiforcing_tpu/engine/llm_engine.py` for the greedy
-serving slices:
+PyTorch port of `jacobiforcing_tpu/engine/llm_engine.py`, all five decode
+strategies:
   * AR sequences step one token per `ar_decode_step` call (batched, padded to
     the next batch bucket);
-  * greedy Jacobi sequences run whole chunks (`jacobi_chunk_greedy`), grouped
-    by (block_len L, ignore_eos), and their commits are read back right after
+  * single-block Jacobi sequences run whole chunks, greedy
+    (`jacobi_chunk_greedy`) or rejection-sampling (`jacobi_chunk_nongreedy`,
+    strategy `jacobi_nongreedy`), grouped by (block_len L, ignore_eos,
+    non-greedy, top_k, top-p on), and their commits are read back right after
     each chunk (synchronous: the JAX engine's one-chunk-lag pipeline is a
     later slice);
+  * on-policy rollouts (`jacobi_on_policy`) run one block per step
+    (`jacobi_onpolicy_block`), grouped by (L, top_k, top-p on, greedy mode,
+    accept threshold), and append one rollout record per block;
   * multiblock (MR) sequences run `jacobi_chunk_multiblock` chunks, grouped
     by (L, K, C, ignore_eos), through the measured auto-policy of
     `engine/mr_policy.py`, with exact handoffs between the MR state machine
     and the single-block program.
 
 Host randomness is the JAX engine's: a `np.random.RandomState(config.seed)`
-draws the bootstrap draft appended at prefill and every random draft tail of
-the MR arms, so with the MR program forced the port matches the JAX engine
-iteration for iteration.  Device randomness (AR sampling, the random tail of
-single-block Jacobi drafts) comes from a `torch.Generator` seeded from
-`config.seed`; it cannot reproduce `jax.random`'s bits, so there greedy token
+draws the bootstrap draft appended at prefill, every random draft tail of the
+MR arms and the prompt-sampled initial block of each on-policy rollout, so
+with the MR program forced the port matches the JAX engine iteration for
+iteration and greedy on-policy collection matches it record for record.
+Device randomness (AR sampling, the random tail of single-block Jacobi
+drafts, the rejection-sampling draws) comes from a `torch.Generator` seeded
+from `config.seed`; it cannot reproduce `jax.random`'s bits, so greedy token
 streams match the JAX engine exactly while iteration counts (and so tokens
-per forward) move within the spread across seeds.
+per forward) move within the spread across seeds, and sampled streams agree
+in distribution.
 """
 
 from __future__ import annotations
@@ -59,7 +67,9 @@ def _bucket(n: int, buckets: PySeq[int]) -> int:
 
 class LLMEngine:
     MR = "jacobi_multiblock_rejection_recycling"
-    SUPPORTED_STRATEGIES = {"autoregressive", "jacobi", MR}
+    NONGREEDY = "jacobi_nongreedy"
+    ON_POLICY = "jacobi_on_policy"
+    SUPPORTED_STRATEGIES = {"autoregressive", "jacobi", NONGREEDY, ON_POLICY, MR}
 
     def __init__(
         self,
@@ -148,8 +158,11 @@ class LLMEngine:
             raise NotImplementedError(
                 f"decode_strategy {strat!r} is not supported by the PyTorch port yet"
             )
-        if strat.startswith("jacobi") and sampling_params.temperature > 0:
-            raise NotImplementedError("non-greedy Jacobi is not supported by the PyTorch port yet")
+        if strat in ("jacobi", self.MR) and sampling_params.temperature > 0:
+            # the JAX engine would decode these greedily without saying so
+            raise NotImplementedError(
+                f"{strat!r} decodes greedily: a temperature > 0 request takes "
+                f"{self.NONGREEDY!r} (LLM.generate routes 'jacobi' there)")
         if len(token_ids) >= self.config.max_model_len:
             raise ValueError(
                 f"prompt ({len(token_ids)} tokens) exceeds max_model_len "
@@ -293,22 +306,36 @@ class LLMEngine:
         for i in range(0, len(ar), max_b):
             self._ar_step(ar[i : i + max_b])
         mr_groups: Dict[tuple, List[Sequence]] = {}
+        op_groups: Dict[tuple, List[Sequence]] = {}
         groups: Dict[tuple, List[Sequence]] = {}
         for s in seqs:
             sp = s.sampling_params
+            use_top_p = 0.0 < sp.top_p < 1.0
             if sp.decode_strategy == self.MR:
                 k = (sp.jacobi_block_len, max(1, sp.jacobi_max_blocks),
                      max(1, sp.jacobi_n_gram_pool_size), sp.ignore_eos)
                 mr_groups.setdefault(k, []).append(s)
+            elif sp.decode_strategy == self.ON_POLICY:
+                # temperature 0 is the greedy trajectory collector
+                k = (sp.jacobi_block_len, sp.top_k, use_top_p, sp.temperature == 0.0,
+                     float(sp.jacobi_accept_threshold))
+                op_groups.setdefault(k, []).append(s)
             elif self._is_jacobi(s):
-                groups.setdefault((sp.jacobi_block_len, sp.ignore_eos), []).append(s)
+                nongreedy = sp.decode_strategy == self.NONGREEDY
+                k = (sp.jacobi_block_len, sp.ignore_eos, nongreedy,
+                     sp.top_k if nongreedy else -1, use_top_p and nongreedy)
+                groups.setdefault(k, []).append(s)
         for (L, K, C, ignore_eos), group in mr_groups.items():
             for i in range(0, len(group), max_b):
                 self._mr_dispatch(
                     group[i : i + max_b], L, K, C, -1 if ignore_eos else self.config.eos)
-        for (L, ignore_eos), group in groups.items():
+        for (L, top_k, use_top_p, greedy_mode, thr), group in op_groups.items():
             for i in range(0, len(group), max_b):
-                self._jacobi_chunk(group[i : i + max_b], L, -1 if ignore_eos else self.config.eos)
+                self._onpolicy_block(group[i : i + max_b], L, top_k, use_top_p, greedy_mode, thr)
+        for (L, ignore_eos, nongreedy, top_k, use_top_p), group in groups.items():
+            for i in range(0, len(group), max_b):
+                self._jacobi_chunk(group[i : i + max_b], L, -1 if ignore_eos else self.config.eos,
+                                   nongreedy=nongreedy, top_k=top_k, use_top_p=use_top_p)
 
     def _ar_step(self, seqs: List[Sequence]) -> None:
         B = _bucket(len(seqs), self.config.batch_buckets)
@@ -335,13 +362,17 @@ class LLMEngine:
         self.stats["ar_steps"] += 1
 
     def _jacobi_chunk(self, seqs: List[Sequence], L: int, eos_id: int,
-                      stat_key: Optional[str] = None) -> None:
-        """Run one greedy Jacobi chunk for a group and commit its tokens;
-        `stat_key` names a counter that is credited the chunk's iterations."""
+                      stat_key: Optional[str] = None, *, nongreedy: bool = False,
+                      top_k: int = -1, use_top_p: bool = False) -> None:
+        """Run one single-block Jacobi chunk for a group, greedy or
+        rejection-sampling, and commit its tokens; `stat_key` names a counter
+        that is credited the chunk's iterations."""
         B = _bucket(len(seqs), self.config.batch_buckets)
         n = len(seqs)
         capacity = np.zeros((B,), np.int32)
         len_limit = np.zeros((B,), np.int32)
+        temps = np.ones((B,), np.float32)
+        top_ps = np.ones((B,), np.float32)
         max_iters = np.ones((B,), np.int32)
         tokens = np.zeros((B, self.cap_tokens), np.int32)
         cur_len = np.ones((B,), np.int32)
@@ -352,6 +383,8 @@ class LLMEngine:
             capacity[i] = min(self.block_manager.capacity_tokens(s), self.cap_tokens - 1)
             len_limit[i] = len(s) + max(0, s.max_tokens - s.num_completion_tokens)
             max_iters[i] = min(s.sampling_params.jacobi_max_iterations, 2**30)
+            temps[i] = s.sampling_params.temperature
+            top_ps[i] = s.sampling_params.top_p
             tokens[i, : len(s)] = s.token_ids
             cur_len[i] = len(s)
             eos[i] = False
@@ -370,15 +403,22 @@ class LLMEngine:
                         0, self.model_cfg.vocab_size, L - 1 - ncopy
                     )
             draft[i, 0] = s.last_token
-        res = runner.jacobi_chunk_greedy(
-            self.params, self.model_cfg, self.rope, self.kv,
-            self._tensor(tokens), self._tensor(cur_len), self._tensor(draft),
-            self._tensor(eos), self._tensor(iters0), self._pad_block_table(seqs, B),
-            self._tensor(capacity), self._tensor(len_limit), self.generator, eos_id,
-            self._tensor(max_iters),
-            chunk_budget=self.config.jacobi_chunk_tokens,
-            chunk_iters=self.config.jacobi_chunk_iters,
-        )
+        state = (self._tensor(tokens), self._tensor(cur_len), self._tensor(draft),
+                 self._tensor(eos), self._tensor(iters0), self._pad_block_table(seqs, B),
+                 self._tensor(capacity), self._tensor(len_limit))
+        chunking = dict(chunk_budget=self.config.jacobi_chunk_tokens,
+                        chunk_iters=self.config.jacobi_chunk_iters)
+        if nongreedy:
+            res = runner.jacobi_chunk_nongreedy(
+                self.params, self.model_cfg, self.rope, self.kv, *state,
+                self._tensor(temps), self._tensor(top_ps), self.generator, eos_id,
+                self._tensor(max_iters), top_k=top_k, use_top_p=use_top_p, **chunking,
+            )
+        else:
+            res = runner.jacobi_chunk_greedy(
+                self.params, self.model_cfg, self.rope, self.kv, *state, self.generator,
+                eos_id, self._tensor(max_iters), **chunking,
+            )
         self.kv = res["kv"]
         window, starts, cur_out, iters_out, draft_out, gen = (
             res[k].cpu().numpy()
@@ -639,6 +679,89 @@ class LLMEngine:
             self.stats[name] = self.stats.get(name, 0) + int(count)
 
     # ------------------------------------------------------------------
+    def _onpolicy_block(self, seqs: List[Sequence], L: int, top_k: int, use_top_p: bool,
+                        greedy_mode: bool, accept_threshold: float) -> None:
+        """Run one on-policy rollout block per sequence and append its record
+        (the reference's record format, jacobi_decoding_nongreedy_on_policy.py).
+        The initial block is drawn from the prompt's tokens by the host
+        generator, in the JAX engine's order."""
+        B = _bucket(len(seqs), self.config.batch_buckets)
+        tokens = np.zeros((B, self.cap_tokens), np.int32)
+        cur_len = np.ones((B,), np.int32)
+        block_init = np.zeros((B, L), np.int32)
+        gen_len = np.zeros((B,), np.int32)
+        active = np.zeros((B,), bool)
+        capacity = np.zeros((B,), np.int32)
+        temps = np.ones((B,), np.float32)
+        top_ps = np.ones((B,), np.float32)
+        pad_id = max(self.config.pad, 0)
+
+        stops = list(self.config.stop_token_ids)
+        if self.config.eos >= 0 and self.config.eos not in stops:
+            stops.append(self.config.eos)
+        stops_arr = np.full((max(4, len(stops)),), -1, np.int32)
+        stops_arr[: len(stops)] = stops
+
+        prefixes = []
+        for i, s in enumerate(seqs):
+            tokens[i, : len(s)] = s.token_ids
+            cur_len[i] = len(s)
+            gl = min(L, max(0, s.max_tokens - s.num_completion_tokens))
+            gen_len[i] = gl
+            active[i] = gl > 0 and not s.op_stopped
+            capacity[i] = min(self.block_manager.capacity_tokens(s), self.cap_tokens - 1)
+            temps[i] = s.sampling_params.temperature
+            top_ps[i] = s.sampling_params.top_p
+            prefixes.append(list(s.token_ids))
+            # prompt-conditioned draft init (on_policy.py:254-265)
+            choices = [t for t in s.token_ids if t != pad_id]
+            if choices:
+                block_init[i, :gl] = self.rng.choice(choices, size=gl)
+            else:
+                block_init[i, :gl] = self.rng.randint(0, self.model_cfg.vocab_size, gl)
+            block_init[i, gl:] = pad_id
+
+        res = runner.jacobi_onpolicy_block(
+            self.params, self.model_cfg, self.rope, self.kv,
+            self._tensor(tokens), self._tensor(cur_len), self._tensor(block_init),
+            self._tensor(gen_len), self._tensor(active), self._pad_block_table(seqs, B),
+            self._tensor(capacity), self._tensor(temps), self._tensor(top_ps), self.generator,
+            self._tensor(stops_arr), pad_id, top_k=top_k, use_top_p=use_top_p,
+            greedy_mode=greedy_mode, accept_threshold=accept_threshold,
+        )
+        self.kv = res["kv"]
+        tokens_out, cur_out, iters_out, fwds_out, stopped_out, traj_out = (
+            res[k].cpu().numpy() for k in ("tokens", "cur_len", "iters", "fwds", "stopped", "traj")
+        )
+        for i, s in enumerate(seqs):
+            if not active[i]:
+                continue
+            new = tokens_out[i, len(s) : cur_out[i]].tolist()
+            s.extend_tokens(new)
+            s.num_cached_tokens = len(s) - 1
+            s.op_iters += int(iters_out[i])
+            s.op_fwds += int(fwds_out[i])
+            s.op_stopped = bool(stopped_out[i])
+            s.jacobi_iters += 1  # block count (on-policy max_iterations = blocks)
+            n_it = int(iters_out[i])
+            total_toks = s.num_completion_tokens
+            s.rollout_records.append({
+                "diffusion_itr_id": f"itr_{len(s.rollout_records)}",
+                "prompt_ids": prefixes[i],
+                "answer_trajectory_ids": traj_out[i, : n_it + 1].tolist(),
+                "teacher_output_ids": None,  # max-filled at retirement
+                "tokens_per_iter": total_toks / max(s.op_iters, 1),
+                "tokens_per_forward": total_toks / max(s.op_fwds, 1),
+                "num_iters": s.op_iters,
+                "num_forwards": s.op_fwds,
+            })
+            self.stats["generated_tokens"] += len(new)
+            self.stats["jacobi_iterations"] += n_it
+        # loop trips of this block = the slowest row's iterations
+        self.stats["chunk_forwards"] += int(iters_out[: len(seqs)].max(initial=0))
+        self.stats["chunk_calls"] += 1
+
+    # ------------------------------------------------------------------
     def exit(self) -> None:
         """Release the KV pool and the weights' references."""
         self.kv = None
@@ -690,5 +813,11 @@ class LLMEngine:
             out = {"token_ids": s.completion_token_ids}
             if self.tokenizer is not None:
                 out["text"] = self.tokenizer.decode(s.completion_token_ids)
+            if s.rollout_records:
+                # max-fill teacher_output_ids with the final full sequence
+                full = list(s.token_ids)
+                for rec in s.rollout_records:
+                    rec["teacher_output_ids"] = full
+                out["rollout_records"] = s.rollout_records
             outs.append(out)
         return outs

@@ -1,12 +1,12 @@
-"""Decode programs: prefill, AR decode, and the greedy Jacobi fixed-point loop.
+"""Decode programs: prefill, AR decode, and the Jacobi fixed-point loops.
 
-PyTorch port of `jacobiforcing_tpu/engine/runner.py` (the greedy slice).  The
-JAX version runs a whole Jacobi chunk as one jitted `lax.while_loop`; here the
-loop is a Python loop whose body runs on the device, with the per-row
+PyTorch port of `jacobiforcing_tpu/engine/runner.py`.  The JAX version runs a
+whole Jacobi chunk (or on-policy block) as one jitted `lax.while_loop`; here
+the loop is a Python loop whose body runs on the device, with the per-row
 `active` mask kept on the device.  The loop condition is read back once per
 iteration.  The KV cache is updated in place.
 
-Semantics kept from the JAX version (and the reference greedy decoder):
+Greedy semantics kept from the JAX version (and the reference decoder):
   * draft[0] is the seed = last committed token, re-forwarded each iteration
     at position S-1;
   * accept length = 1 + number of leading exact matches of draft[1:] against
@@ -16,6 +16,12 @@ Semantics kept from the JAX version (and the reference greedy decoder):
   * next draft = greedy continuation from the first mismatch, padded with
     random tokens drawn from an explicit `torch.Generator`;
   * the rejected tail needs no KV trim: validity is the cache_lens counter.
+
+`jacobi_chunk_nongreedy` verifies stochastically instead (rejection sampling
+under a delta proposal), and `jacobi_onpolicy_block` runs one block to
+completion while recording every intermediate block state (the trajectory
+collector).  Their random draws come from the caller's generator in a fixed
+order per iteration, so one seed gives one stream.
 """
 
 from __future__ import annotations
@@ -26,16 +32,27 @@ import torch
 
 from jacobiforcing_tpu_torch.models.qwen import (
     ModelConfig,
+    chunked_token_logprob,
     forward,
     greedy_tokens,
     logits_at,
 )
 from jacobiforcing_tpu_torch.ops.kv_cache import KVCache
-from jacobiforcing_tpu_torch.ops.sampling import sample
+from jacobiforcing_tpu_torch.ops.sampling import gumbel, sample, target_probs
 
 
 def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=like.device)
+
+
+def _scatter_drop(buf: torch.Tensor, cols: torch.Tensor, valid: torch.Tensor,
+                  values: torch.Tensor) -> torch.Tensor:
+    """buf [B, C] with values [B, K] written at cols [B, K] where `valid`;
+    the other writes go to a trash column and are dropped (the JAX scatter's
+    `mode="drop"`)."""
+    C = buf.shape[1]
+    idx = torch.where(valid, cols, C).long()
+    return torch.cat([buf, buf[:, :1]], dim=1).scatter(1, idx, values)[:, :C]
 
 
 # ---------------------------------------------------------------------------
@@ -157,18 +174,55 @@ def _jacobi_cond(chunk_budget, max_iters, state: JacobiState, len_limit, capacit
     )
 
 
+def _forward_draft(params, cfg, rope, state: JacobiState, active, block_tables):
+    """Forward each row's L-token draft at positions cur_len-1 ...; active
+    rows write their K/V.  Returns (hidden [B, L, H], kv)."""
+    B, L = state.draft.shape
+    positions = (state.cur_len - 1)[:, None] + _arange(L, state.draft)[None, :]
+    return forward(
+        params, cfg, state.draft, positions, state.kv, block_tables,
+        cache_lens=state.cur_len - 1 + L, rope=rope, write_mask=active[:, None].expand(B, L),
+    )
+
+
+def _commit_and_redraft(
+    cfg, state: JacobiState, kv, active, commit, count, new_eos, greedy_full, generator
+) -> JacobiState:
+    """Write each active row's first `count` tokens of `commit` [B, L-1]
+    after its committed prefix, and build its next draft: the new seed, the greedy continuation from the
+    commit point (greedy_full[count:]) and random padding.  Inactive rows
+    keep their state."""
+    B, L = state.draft.shape
+    j = _arange(L - 1, state.draft)[None, :]
+    valid = (j < count[:, None]) & active[:, None]
+    tokens = _scatter_drop(state.tokens, state.cur_len[:, None] + j, valid, commit)
+
+    n = torch.where(active, count, 0)
+    cur_len = state.cur_len + n
+    generated = state.generated + n
+    iters = state.iters + active.to(torch.int32)
+
+    rows = torch.arange(B, device=tokens.device)
+    seed = tokens[rows, (cur_len - 1).clamp(min=0).long()]
+    src = count[:, None] + j  # [B, L-1] indices into greedy_full
+    cont = torch.gather(greedy_full, 1, src.clamp(0, L - 1).long())
+    rand = torch.randint(
+        0, cfg.vocab_size, (B, L - 1), generator=generator, device=tokens.device,
+        dtype=torch.int32,
+    )
+    new_spec = torch.where(src < L, cont, rand)
+    new_draft = torch.cat([seed[:, None], new_spec], dim=1)
+    new_draft = torch.where(active[:, None], new_draft, state.draft)
+    return JacobiState(kv, tokens, cur_len, new_draft, new_eos, generated, iters)
+
+
 def _jacobi_step(
     params, cfg, rope, state: JacobiState, active, block_tables, generator, eos_token_id
 ) -> JacobiState:
-    """One Jacobi iteration over every row; inactive rows keep their state."""
+    """One greedy Jacobi iteration over every row; inactive rows keep their state."""
     B, L = state.draft.shape
     j = _arange(L - 1, state.draft)[None, :]
-    positions = (state.cur_len - 1)[:, None] + _arange(L, state.draft)[None, :]
-    cache_lens = state.cur_len - 1 + L
-    h, kv = forward(
-        params, cfg, state.draft, positions, state.kv, block_tables,
-        cache_lens=cache_lens, rope=rope, write_mask=active[:, None].expand(B, L),
-    )
+    h, kv = _forward_draft(params, cfg, rope, state, active, block_tables)
     greedy_full = greedy_tokens(params, cfg, h)  # [B, L]
 
     # ---- verify ----
@@ -191,33 +245,96 @@ def _jacobi_step(
 
     count = torch.where(fallback, 1, acc_len - 1).to(torch.int32)
     commit = torch.where(fallback[:, None], fb_tok[:, None], spec)  # [B, L-1]
+    return _commit_and_redraft(cfg, state, kv, active, commit, count, new_eos, greedy_full,
+                               generator)
 
-    # ---- commit into the token buffer (a trash column takes skipped writes) ----
-    cap = state.tokens.shape[1]
-    valid = (j < count[:, None]) & active[:, None]
-    tok_idx = torch.where(valid, state.cur_len[:, None] + j, cap).long()
-    tokens = torch.cat([state.tokens, state.tokens[:, :1]], dim=1)
-    tokens = tokens.scatter(1, tok_idx, commit)[:, :cap]
 
-    count = torch.where(active, count, 0)
-    cur_len = state.cur_len + count
-    generated = state.generated + count
-    iters = state.iters + active.to(torch.int32)
+def _nongreedy_step(
+    params, cfg, rope, state: JacobiState, active, block_tables, generator, eos_token_id,
+    temperature, top_p, top_k: int, use_top_p: bool,
+) -> JacobiState:
+    """One rejection-sampling Jacobi iteration (delta proposal): accept the
+    drafted x_t with probability p_t(x_t); at the first rejection draw a bonus
+    token from p_t with x_t excluded; >= 1 token per iteration.  Draws, in
+    order: u [B, L-1], the bonus's Gumbel noise [B, V], the padding."""
+    B, L = state.draft.shape
+    j = _arange(L - 1, state.draft)[None, :]
+    rows = torch.arange(B, device=state.draft.device)
+    h, kv = _forward_draft(params, cfg, rope, state, active, block_tables)
+    spec = state.draft[:, 1:]  # [B, L-1] proposed tokens
 
-    # ---- next draft ----
-    rows = torch.arange(B, device=tokens.device)
-    seed = tokens[rows, (cur_len - 1).clamp(min=0).long()]
-    start = torch.where(fallback, 1, acc_len - 1)
-    src = start[:, None] + j  # [B, L-1] indices into greedy_full
-    cont = torch.gather(greedy_full, 1, src.clamp(0, L - 1).long())
-    rand = torch.randint(
-        0, cfg.vocab_size, (B, L - 1), generator=generator, device=tokens.device,
-        dtype=torch.int32,
-    )
-    new_spec = torch.where(src < L, cont, rand)
-    new_draft = torch.cat([seed[:, None], new_spec], dim=1)
-    new_draft = torch.where(active[:, None], new_draft, state.draft)
-    return JacobiState(kv, tokens, cur_len, new_draft, new_eos, generated, iters)
+    # ---- stochastic verify ----
+    light = top_k <= 0 and not use_top_p
+    if light:
+        # acceptance needs only p(drafted token): vocab-chunked logsumexp, no
+        # [B, L, V] logits
+        p_x = torch.exp(chunked_token_logprob(params, cfg, h[:, : L - 1], spec,
+                                              temperature[:, None]))
+        greedy_full = greedy_tokens(params, cfg, h)
+    else:
+        logits = logits_at(params, cfg, h)  # [B, L, V]
+        greedy_full = torch.argmax(logits, dim=-1).to(torch.int32)
+        probs = target_probs(logits[:, : L - 1], temperature[:, None], top_k=top_k,
+                             top_p=top_p[:, None] if use_top_p else None)  # [B, L-1, V]
+        p_x = torch.gather(probs, -1, spec[..., None].long())[..., 0]
+
+    u = torch.rand((B, L - 1), generator=generator, device=h.device, dtype=torch.float32)
+    accept = (u < p_x).to(torch.int32)
+    n_acc = torch.cumprod(accept, dim=-1).sum(-1).to(torch.int32)
+    rejected = n_acc < (L - 1)
+
+    # bonus ~ p_t(. | != proposed) at the rejection position
+    t_rej = n_acc.clamp(max=L - 2).long()
+    proposed_rej = spec[rows, t_rej].long()
+    if light:
+        # the full distribution at ONE position per row
+        logp = logits_at(params, cfg, h[rows, t_rej]) / temperature.clamp(min=1e-6)[:, None]
+    else:
+        logp = torch.log(probs[rows, t_rej].clamp(min=1e-30))  # [B, V]
+    z = logp + gumbel(logp.shape, generator, logp.device)
+    z[rows, proposed_rej] = float("-inf")
+    bonus = torch.argmax(z, dim=-1).to(torch.int32)
+
+    commit = torch.where((j == n_acc[:, None]) & rejected[:, None], bonus[:, None], spec)
+    count = n_acc + rejected.to(torch.int32)  # >= 1
+
+    # ---- EOS cap over committed tokens ----
+    eos_in = (commit == eos_token_id) & (eos_token_id >= 0) & (j < count[:, None])
+    any_eos = eos_in.any(-1)
+    first_eos = torch.argmax(eos_in.to(torch.int32), dim=-1).to(torch.int32)
+    count = torch.where(any_eos, first_eos + 1, count)
+    new_eos = state.eos | (active & any_eos)
+    return _commit_and_redraft(cfg, state, kv, active, commit, count, new_eos, greedy_full,
+                               generator)
+
+
+def _run_chunk(step, state: JacobiState, iters, max_iters, len_limit, capacity, entry_len,
+               chunk_budget, chunk_iters) -> Dict[str, torch.Tensor]:
+    """Step every active row until none is left or the chunk's budget is
+    spent: `chunk_budget` committed tokens per row, or with chunk_iters > 0 a
+    fixed number of loop trips in which every unfinished row takes part."""
+    L = state.draft.shape[1]
+    budget = None if chunk_iters > 0 else chunk_budget
+    while True:
+        active = _jacobi_cond(budget, max_iters, state, len_limit, capacity)
+        go = active.any()
+        if chunk_iters > 0:
+            go = go & ((state.iters - iters).max() < chunk_iters)
+        if not bool(go):  # the one device-to-host read per iteration
+            break
+        state = step(state, active)
+    window, win_start = _commit_window(entry_len, state.tokens, L, chunk_budget, chunk_iters)
+    return {
+        "kv": state.kv,
+        "tokens": state.tokens,
+        "cur_len": state.cur_len,
+        "draft": state.draft,
+        "eos": state.eos,
+        "generated": state.generated,
+        "iters": state.iters,
+        "new_tokens": window,
+        "win_start": win_start,
+    }
 
 
 @torch.no_grad()
@@ -247,33 +364,270 @@ def jacobi_chunk_greedy(
     chunk_iters > 0 by a fixed number of loop trips in which every
     unfinished row takes part.
     """
-    B, L = draft.shape
-    budget = None if chunk_iters > 0 else chunk_budget
+    B = draft.shape[0]
     state = JacobiState(
         kv, tokens, cur_len, draft, eos,
         torch.zeros((B,), dtype=torch.int32, device=draft.device), iters,
     )
+
+    def step(st, active):
+        return _jacobi_step(params, cfg, rope, st, active, block_tables, generator, eos_token_id)
+
+    return _run_chunk(step, state, iters, max_iters, len_limit, capacity, cur_len,
+                      chunk_budget, chunk_iters)
+
+
+@torch.no_grad()
+def jacobi_chunk_nongreedy(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    rope,
+    kv: KVCache,
+    tokens: torch.Tensor,  # [B, cap_tokens]
+    cur_len: torch.Tensor,  # [B]
+    draft: torch.Tensor,  # [B, L]
+    eos: torch.Tensor,  # [B] bool
+    iters: torch.Tensor,  # [B]
+    block_tables: torch.Tensor,
+    capacity: torch.Tensor,
+    len_limit: torch.Tensor,  # [B] absolute token-count limit
+    temperature: torch.Tensor,  # [B] float32 > 0
+    top_p: torch.Tensor,  # [B] float32 (ignored unless use_top_p)
+    generator: torch.Generator,
+    eos_token_id: int,
+    max_iters: torch.Tensor,  # [B] per-request lifetime iteration budgets
+    *,
+    chunk_budget: int,
+    chunk_iters: int = 0,
+    top_k: int = -1,
+    use_top_p: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """Jacobi decoding with speculative-decoding-style stochastic verification
+    under a delta proposal (the reference's
+    JacobiDecoderNonGreedy._verify_block_rejection_sampling): accept x_t with
+    probability p_t(x_t), at the first rejection commit a bonus token from
+    p_t conditioned on != x_t, and draft the greedy continuation from the
+    commit point, random-padded.  With top_k <= 0 and no top-p the verify
+    takes the memory-light route (`chunked_token_logprob` + `greedy_tokens`,
+    the full distribution at one position per row); otherwise `logits_at` +
+    `target_probs` over [B, L-1, V].  Chunking as in `jacobi_chunk_greedy`.
+    """
+    B = draft.shape[0]
+    state = JacobiState(
+        kv, tokens, cur_len, draft, eos,
+        torch.zeros((B,), dtype=torch.int32, device=draft.device), iters,
+    )
+
+    def step(st, active):
+        return _nongreedy_step(params, cfg, rope, st, active, block_tables, generator,
+                               eos_token_id, temperature, top_p, top_k, use_top_p)
+
+    return _run_chunk(step, state, iters, max_iters, len_limit, capacity, cur_len,
+                      chunk_budget, chunk_iters)
+
+
+# ---------------------------------------------------------------------------
+# On-policy rollout: one L-token block with full trajectory recording
+# ---------------------------------------------------------------------------
+
+
+class OnPolicyState(NamedTuple):
+    kv: KVCache
+    tokens: torch.Tensor  # [B, cap]
+    cur_len: torch.Tensor  # [B]
+    block_tokens: torch.Tensor  # [B, L] current block vector (committed + draft + pad)
+    accepted: torch.Tensor  # [B] committed count within the block
+    stopped: torch.Tensor  # [B] bool: stop token committed
+    traj: torch.Tensor  # [B, L+1, L] snapshots (0 = init, i = after iteration i)
+    it: torch.Tensor  # [B] iterations used in this block
+    fwds: torch.Tensor  # [B]
+
+
+def _onpolicy_active(state: OnPolicyState, gen_len, capacity):
+    L = state.block_tokens.shape[1]
+    return (
+        (~state.stopped)
+        & (state.accepted < gen_len)
+        & ((state.cur_len + L) <= capacity)
+        & (state.cur_len + L < state.tokens.shape[1])
+    )
+
+
+def _onpolicy_step(
+    params, cfg, rope, state: OnPolicyState, active, gen_len, block_tables, temperature,
+    top_p, generator, stop_tokens, pad_token_id, top_k, use_top_p, greedy_mode,
+    accept_threshold,
+) -> OnPolicyState:
+    B, L = state.block_tokens.shape
+    dev = state.block_tokens.device
+    jT = _arange(L, state.block_tokens)[None, :]
+    rows = torch.arange(B, device=dev)
+    remaining = (gen_len - state.accepted).clamp(1, L)  # [B]
+    seed = state.tokens[rows, (state.cur_len - 1).clamp(min=0).long()]
+    src = (state.accepted[:, None] + jT).clamp(0, L - 1).long()
+    proposed = torch.gather(state.block_tokens, 1, src)  # [B, L]
+    draft = torch.cat([seed[:, None], proposed], dim=1)  # [B, L+1]
+
+    # L+1 rows from cur_len-1; only rows j <= remaining write, and cache_lens
+    # stops at the last of them, so the tail rows sit past cache_lens
+    j1 = _arange(L + 1, state.block_tokens)[None, :]
+    positions = (state.cur_len - 1)[:, None] + j1
+    write_mask = (j1 <= remaining[:, None]) & active[:, None]
+    h, kv = forward(
+        params, cfg, draft, positions, state.kv, block_tables,
+        cache_lens=state.cur_len + remaining, rope=rope, write_mask=write_mask,
+    )
+    logits = logits_at(params, cfg, h[:, :L])  # [B, L, V]
+    greedy_full = torch.argmax(logits, dim=-1).to(torch.int32)
+    undecided = jT < remaining[:, None]
+
+    if greedy_mode:
+        # exact-match acceptance; zero acceptance commits argmax[0]
+        accept = (proposed == greedy_full) & undecided
+        n_acc = torch.cumprod(accept.to(torch.int32), dim=-1).sum(-1).to(torch.int32)
+        fallback = n_acc == 0
+        commit = torch.where((jT == 0) & fallback[:, None], greedy_full[:, :1], proposed)
+        count = n_acc.clamp(min=1)
+        samp = greedy_full  # tail refresh = greedy continuation
+    else:
+        probs = target_probs(logits, temperature[:, None], top_k=top_k,
+                             top_p=top_p[:, None] if use_top_p else None)  # [B, L, V]
+        p_x = torch.gather(probs, -1, proposed[..., None].long())[..., 0]
+        if accept_threshold > 0.0:
+            # deterministic acceptance of the prefix with p(x) >= threshold
+            accept = (p_x >= accept_threshold) & undecided
+        else:
+            u = torch.rand((B, L), generator=generator, device=dev, dtype=torch.float32)
+            accept = (u < p_x) & undecided
+        n_acc = torch.cumprod(accept.to(torch.int32), dim=-1).sum(-1).to(torch.int32)
+        rejected = n_acc < remaining
+
+        t_rej = torch.minimum(n_acc, remaining - 1).long()
+        logp = torch.log(probs[rows, t_rej].clamp(min=1e-30))  # [B, V]
+        z = logp + gumbel(logp.shape, generator, dev)
+        if accept_threshold <= 0.0:
+            # the rejection-sampling residual excludes the rejected proposal
+            z[rows, proposed[rows, t_rej].long()] = float("-inf")
+        bonus = torch.argmax(z, dim=-1).to(torch.int32)
+        if accept_threshold > 0.0:
+            # zero acceptance samples ONE token from the full p; no bonus otherwise
+            fallback = n_acc == 0
+            commit = torch.where((jT == 0) & fallback[:, None], bonus[:, None], proposed)
+            count = n_acc.clamp(min=1)
+        else:
+            commit = torch.where((jT == n_acc[:, None]) & rejected[:, None], bonus[:, None],
+                                 proposed)
+            count = n_acc + rejected.to(torch.int32)  # >= 1
+        # next drafts of undecided positions are sampled from the current probs
+        samp = torch.argmax(torch.log(probs.clamp(min=1e-30)) + gumbel(probs.shape, generator, dev),
+                            dim=-1).to(torch.int32)
+
+    # ---- stop-token cap (the stop set is padded with -1) ----
+    is_stop = (commit[:, :, None] == stop_tokens[None, None, :]).any(-1) & (stop_tokens.max() >= 0)
+    stop_in = is_stop & (jT < count[:, None])
+    any_stop = stop_in.any(-1)
+    first_stop = torch.argmax(stop_in.to(torch.int32), dim=-1).to(torch.int32)
+    count = torch.where(any_stop, first_stop + 1, count)
+    stopped = state.stopped | (active & any_stop)
+
+    # ---- commit into the running sequence and the block vector ----
+    valid = (jT < count[:, None]) & active[:, None]
+    tokens = _scatter_drop(state.tokens, state.cur_len[:, None] + jT, valid, commit)
+    count = torch.where(active, count, 0)
+    cur_len = state.cur_len + count
+    bt1 = _scatter_drop(state.block_tokens, state.accepted[:, None] + jT, valid, commit)
+    accepted = torch.minimum(gen_len, state.accepted + count)
+
+    # block position q >= accepted takes sample q - (old accepted); every such
+    # q below gen_len lies inside this forward's `remaining` rows (the JAX
+    # version's random fill beyond them is only ever overwritten by the pad)
+    sample_idx = (count[:, None] + (jT - accepted[:, None])).clamp(0, L - 1).long()
+    draft_val = torch.gather(samp, 1, sample_idx)
+    pad = torch.full_like(draft_val, pad_token_id)
+    new_bt = torch.where(
+        jT < accepted[:, None], bt1,
+        torch.where(stopped[:, None] | (jT >= gen_len[:, None]), pad, draft_val),
+    )
+    new_bt = torch.where(active[:, None], new_bt, state.block_tokens)
+
+    it = state.it + active.to(torch.int32)
+    fwds = state.fwds + active.to(torch.int32)
+    snap = active[:, None] & (_arange(L + 1, state.block_tokens)[None, :] == it[:, None])
+    traj = torch.where(snap[:, :, None], new_bt[:, None, :], state.traj)
+    return OnPolicyState(kv, tokens, cur_len, new_bt, accepted, stopped, traj, it, fwds)
+
+
+@torch.no_grad()
+def jacobi_onpolicy_block(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    rope,
+    kv: KVCache,
+    tokens: torch.Tensor,  # [B, cap]
+    cur_len: torch.Tensor,  # [B]
+    block_init: torch.Tensor,  # [B, L] initial draft (prompt-sampled) + pads
+    gen_len: torch.Tensor,  # [B] = min(L, remaining token budget)
+    active_in: torch.Tensor,  # [B] bool: row participates
+    block_tables: torch.Tensor,
+    capacity: torch.Tensor,
+    temperature: torch.Tensor,  # [B] float32 > 0
+    top_p: torch.Tensor,  # [B] float32
+    generator: torch.Generator,
+    stop_tokens: torch.Tensor,  # [n_stop] int32 (padded with -1)
+    pad_token_id: int,
+    *,
+    top_k: int = -1,
+    use_top_p: bool = False,
+    greedy_mode: bool = False,
+    accept_threshold: float = 0.0,
+) -> Dict[str, torch.Tensor]:
+    """Run ONE Jacobi block to completion, recording every intermediate block
+    state: the on-policy trajectory collector (the reference's
+    JacobiDecoderNonGreedyOnPolicy._run_one_block).
+
+      * the block vector has fixed length L; only gen_len positions generate,
+        the tail is pad;
+      * per iteration: forward [seed + block from the commit point] (L + 1
+        rows), verify, commit >= 1 token;
+      * verify modes: `greedy_mode` (exact match, argmax[0] on zero
+        acceptance, greedy tail refresh: the reference's greedy collector),
+        rejection sampling (accept w.p. p(x), bonus from p(.|!=x) at the
+        first rejection), or `accept_threshold` > 0 (the prefix with p(x) >=
+        threshold, one full-p sample on zero acceptance, no exclusion);
+      * outside greedy mode, next drafts of undecided positions are SAMPLED
+        from the current probabilities;
+      * a committed stop token caps the block and pads its tail;
+      * `traj` holds the block vector after every iteration (init first).
+
+    Random draws per iteration, in order: u (rejection sampling only), the
+    bonus noise [B, V], the draft noise [B, L, V]; greedy mode draws none.
+    """
+    B, L = block_init.shape
+    dev = block_init.device
+    block_init = block_init.to(torch.int32)
+    traj0 = torch.zeros((B, L + 1, L), dtype=torch.int32, device=dev)
+    traj0[:, 0] = block_init
+    zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
+    state = OnPolicyState(kv, tokens, cur_len, block_init, zeros, ~active_in, traj0, zeros, zeros)
     while True:
-        active = _jacobi_cond(budget, max_iters, state, len_limit, capacity)
-        go = active.any()
-        if chunk_iters > 0:
-            go = go & ((state.iters - iters).max() < chunk_iters)
-        if not bool(go):  # the one device-to-host read per iteration
+        active = _onpolicy_active(state, gen_len, capacity)
+        if not bool(active.any()):  # the one device-to-host read per iteration
             break
-        state = _jacobi_step(
-            params, cfg, rope, state, active, block_tables, generator, eos_token_id
+        state = _onpolicy_step(
+            params, cfg, rope, state, active, gen_len, block_tables, temperature, top_p,
+            generator, stop_tokens, pad_token_id, top_k, use_top_p, greedy_mode,
+            accept_threshold,
         )
-    window, win_start = _commit_window(cur_len, state.tokens, L, chunk_budget, chunk_iters)
     return {
         "kv": state.kv,
         "tokens": state.tokens,
         "cur_len": state.cur_len,
-        "draft": state.draft,
-        "eos": state.eos,
-        "generated": state.generated,
-        "iters": state.iters,
-        "new_tokens": window,
-        "win_start": win_start,
+        "block_tokens": state.block_tokens,
+        "accepted": state.accepted,
+        "stopped": state.stopped,
+        "traj": state.traj,
+        "iters": state.it,
+        "fwds": state.fwds,
     }
 
 

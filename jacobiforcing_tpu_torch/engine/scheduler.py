@@ -125,8 +125,12 @@ class Scheduler:
                 sp.decode_strategy.startswith("jacobi")
                 and seq.jacobi_iters >= sp.jacobi_max_iterations
             )
+            # on-policy: a committed stop token ends the rollout (for on-policy
+            # jacobi_max_iterations counts BLOCKS)
+            op_done = sp.decode_strategy == "jacobi_on_policy" and seq.op_stopped
             hit_cap = len(seq) >= self.config.max_model_len  # context exhausted
-            if hit_eos or out_of_iters or hit_cap or seq.num_completion_tokens >= sp.max_tokens:
+            if (hit_eos or out_of_iters or op_done or hit_cap
+                    or seq.num_completion_tokens >= sp.max_tokens):
                 seq.truncate_completion()
                 seq.status = SequenceStatus.FINISHED
                 self.block_manager.deallocate(seq)

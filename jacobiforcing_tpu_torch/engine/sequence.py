@@ -3,7 +3,7 @@
 All host state lives in one process; device-side decode state lives in
 fixed-shape tensors owned by the engine, not the Sequence.  The multiblock
 (MR) decoder's per-sequence state is carried between chunks as `mb_state`;
-the on-policy fields of the JAX version come with that decoder.
+the on-policy decoder's rollout records and counters live here too.
 """
 
 from __future__ import annotations
@@ -39,6 +39,11 @@ class Sequence:
         self.prefill_draft: Optional[np.ndarray] = None
         self.draft: Optional[np.ndarray] = None  # [L] int32, draft[0] = seed
         self.jacobi_iters = 0
+        # on-policy rollout records (reference jacobi_decoding_nongreedy_on_policy.py)
+        self.rollout_records: List[dict] = []
+        self.op_stopped = False
+        self.op_iters = 0
+        self.op_fwds = 0
         # multiblock (MR) state carried between chunks (numpy arrays, the dict
         # of LLMEngine._mb_bootstrap); its positions are semantic, so it
         # survives a preemption and re-prefill

@@ -524,3 +524,54 @@ def greedy_tokens(
         best = torch.where(take, cmax, best)
         best_idx = torch.where(take, (carg + start).to(torch.int32), best_idx)
     return best_idx
+
+
+def chunked_token_logprob(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    hidden: torch.Tensor,  # [..., H]
+    tokens: torch.Tensor,  # [...] token whose log-prob is needed
+    temperature: torch.Tensor,  # [...] > 0 (broadcast)
+    *,
+    vocab_chunk: int = 32768,
+) -> torch.Tensor:
+    """log p(token | hidden) at `temperature` without materialising the full
+    [..., V] logits: an online logsumexp over vocab chunks plus the token's
+    logit (the rejection-sampling verify needs only p(drafted token)).  The
+    last chunk is clamped to overlap the one before; its overlap columns and
+    columns past V are -inf there, and a token's logit is taken from the
+    chunk that owns it before clamping.  Sums are in `acc_dtype`."""
+    w = _head(params, cfg)
+    V = cfg.vocab_size
+    acc = acc_dtype(cfg.dtype)
+    t = temperature.to(acc).clamp(min=1e-6)
+    tok = tokens.long()
+    if V <= vocab_chunk:
+        logits = logits_at(params, cfg, hidden) / t[..., None]
+        lx = torch.gather(logits, -1, tok[..., None])[..., 0]
+        return lx - torch.logsumexp(logits, dim=-1)
+    n_chunks = (V + vocab_chunk - 1) // vocab_chunk
+    quantized = isinstance(w, dict)
+    hq = act_quantize(hidden) if (quantized and cfg.act_quant) else None
+    shape, dev = hidden.shape[:-1], hidden.device
+    m = torch.full(shape, float("-inf"), dtype=acc, device=dev)
+    s = torch.zeros(shape, dtype=acc, device=dev)
+    lx = torch.full(shape, float("-inf"), dtype=acc, device=dev)
+    col0 = torch.arange(vocab_chunk, device=dev)
+    for c in range(n_chunks):
+        start = min(c * vocab_chunk, V - vocab_chunk)
+        cols = slice(start, start + vocab_chunk)
+        if quantized:
+            logits = _head_logits(cfg, w["q"][:, cols], w["s"][:, cols], hidden, hq, acc)
+        else:
+            logits = _mm_acc(hidden, w[:, cols].to(cfg.dtype), acc)
+        logits = logits / t[..., None]
+        col = start + col0
+        logits = logits.masked_fill(~((col >= c * vocab_chunk) & (col < V)), float("-inf"))
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[..., None]).sum(-1)
+        m = m_new
+        owned = (tok >= c * vocab_chunk) & (tok < (c + 1) * vocab_chunk) & (tok < V)
+        val = torch.gather(logits, -1, (tok - start).clamp(0, vocab_chunk - 1)[..., None])[..., 0]
+        lx = torch.where(owned, val, lx)
+    return lx - (m + torch.log(s.clamp(min=1e-30)))

@@ -97,22 +97,6 @@ def test_filters_tools_and_sft_rows_equal(tmp_path):
         np.testing.assert_array_equal(a[k], b[k])
 
 
-def test_on_policy_collection_is_refused_by_the_port_engine():
-    """`collect_trajectories` needs the on-policy decoder, which the port's
-    engine does not serve yet: it must refuse, not decode something else."""
-    from jacobiforcing_tpu_torch.engine.llm import LLM
-    from jacobiforcing_tpu_torch.models.qwen import init_params
-
-    cfg = ModelConfig.tiny()
-    llm = LLM(device="cpu", model_cfg=cfg, params=init_params(cfg, 0, device="cpu"),
-              num_kv_pages=16, kvcache_page_size=16, eos=-1)
-    try:
-        with pytest.raises(NotImplementedError):
-            tcollect.collect_trajectories(llm, [[1, 2, 3]], block_len=4, max_tokens=8)
-    finally:
-        llm.exit()
-
-
 def test_synthesize_pack_dataset_train(tmp_path):
     """The data path of the trainer end to end on the CPU, through the
     block-sparse attention path (its plain version here)."""

@@ -79,8 +79,7 @@ def test_bench_generate_demo_anchor(port_llm, tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(tensor_parallel_size=2), dict(jacobi_async_host=True), dict(stop_token_ids=(2,)),
-    dict(data_parallel_size=2),
+    dict(tensor_parallel_size=2), dict(jacobi_async_host=True), dict(data_parallel_size=2),
 ])
 def test_unported_config_options_raise(kw):
     with pytest.raises(NotImplementedError):
@@ -88,19 +87,14 @@ def test_unported_config_options_raise(kw):
 
 
 @pytest.mark.parametrize("strategy,temperature", [
-    ("jacobi_nongreedy", 0.7), ("jacobi_on_policy", 0.7), ("jacobi", 0.7),
+    ("jacobi_multiblock_rejection_recycling", 0.7),
 ])
 def test_unported_strategies_raise(port_llm, strategy, temperature):
+    """MR is greedy only: a sampled MR request raises (the JAX engine would
+    decode it greedily without saying so)."""
     sp = SamplingParams(temperature=temperature, decode_strategy=strategy)
     with pytest.raises(NotImplementedError):
         port_llm.engine.add_request([1, 2, 3], sp)
-
-
-def test_unported_sampling_options_raise():
-    with pytest.raises(NotImplementedError):
-        SamplingParams(top_k=5)
-    with pytest.raises(NotImplementedError):
-        SamplingParams(jacobi_on_policy=True)
 
 
 def test_llm_without_a_card_needs_explicit_cpu():

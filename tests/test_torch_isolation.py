@@ -2,7 +2,8 @@
 `chip_smoke.py` imports `jax`, its training libraries (`optax`, `flax`), the
 `safetensors` package (the port reads and writes the format itself) or
 `jacobiforcing_tpu`, and a process that imports the port, runs a tiny CPU
-forward and takes a training step never loads any of them."""
+forward, serves greedy, sampled and on-policy requests and takes a training
+step never loads any of them."""
 
 import ast
 import os
@@ -38,6 +39,14 @@ def test_the_quantization_modules_are_covered():
         assert f"jacobiforcing_tpu_torch/ops/{mod}.py" in names
 
 
+def test_the_sampling_modules_are_covered():
+    """The non-greedy / on-policy decoders and the learning loop's app are
+    among the files checked above."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ("ops/sampling", "engine/runner", "apps/validate_learning", "data/collect"):
+        assert f"jacobiforcing_tpu_torch/{mod}.py" in names
+
+
 def test_port_process_never_loads_jax():
     code = """
 import sys, torch
@@ -59,6 +68,13 @@ qllm = LLM(device="cpu", model_cfg=cfg, params=quant.init_quantized_params(cfg, 
 out = qllm.generate([[1, 2, 3]], SamplingParams(temperature=0.0, max_tokens=4,
                                                 decode_strategy="jacobi", jacobi_block_len=4))
 assert len(out[0]["token_ids"]) == 4
+out = qllm.generate([[1, 2, 3]], SamplingParams(temperature=0.7, max_tokens=4,
+                                                decode_strategy="jacobi", jacobi_block_len=4))
+assert len(out[0]["token_ids"]) == 4
+out = qllm.generate([[1, 2, 3]], SamplingParams(temperature=0.0, max_tokens=4,
+                                                decode_strategy="jacobi_on_policy",
+                                                jacobi_block_len=4))
+assert out[0]["rollout_records"]
 wp = int4_matmul.pack_int4(torch.randint(-8, 8, (8, 32), dtype=torch.int8))
 assert int4_matmul.int4_matmul(torch.ones(2, 8), wp, torch.ones(32)).shape == (2, 32)
 import tempfile
