@@ -77,12 +77,27 @@ result line):
      Each kernel's launch count is zeroed before each path and must grow in
      the paths that run it; the JSON line reports the Jacobi run's count for
      the paged kernel and the MR run's for the speculative one.
-  7. `full_quant`: Qwen2.5-7B widths with random int8 weights
+  7. `engine`: the serving host path.  The demo checkpoint in f32 on the
+     default engine (one-chunk-lag pipeline, CUDA graphs): `ar`, `jacobi`
+     and `mr` (policy on), 2033 tokens, 64/64 EOS, Jacobi TPF in [4.55,
+     4.85], beside the eager synchronous engine's `jacobi`.  Qwen2.5-7B
+     widths, bf16, 4 requests, block 64, 128 new tokens on three engines
+     (eager-sync, graph-sync, graph-async): `ar` and `jacobi` token match
+     against the eager engine (must be 1.0) with equal loop trips,
+     iterations/s in turns, the device's busy share (profiler records; CUDA
+     events around each graph replay), graphs captured, pool memory and
+     capture time per bucket.  `apps/bench_engine.run_engine_bench` at 7B
+     widths (Jacobi, B 8, prompt 512, 128 new tokens, chunk_iters 8, 16
+     requests) on the three engines with random bf16 weights, and on
+     graph-async with the app's W8A8 model and an fp8 KV cache; each
+     result a JSON line.  Every earlier phase also serves through the
+     default engine.
+  8. `full_quant`: Qwen2.5-7B widths with random int8 weights
      (`init_quantized_params`), the same 4 requests: W8A8 with an fp8 KV cache
      under `ar`, `jacobi` and `mr`, then weight-only int8 with an int8 KV
      cache under `jacobi`; launch counts as in `full`, tok/s, iterations/s,
      peak memory, and the device-time split of a profiled run.
-  8. `train`: the consistency trainer through `train(TrainerArgs(...))` with
+  9. `train`: the consistency trainer through `train(TrainerArgs(...))` with
      `attn_impl="splash"`.  (a) the demo checkpoint's widths in f32 from random
      weights: rows from `synthesize_trajectories_masking` ->
      `pack_trajectories` -> `JacobianDataset`; the first step's losses and
@@ -614,12 +629,18 @@ def two_sources_check():
     block] must equal, bit for bit, the rows of a paged call after the block's
     rows were committed."""
     from jacobiforcing_tpu_torch.ops.kv_cache import (
-        dequantize_rows, quantize_rows, write_kv_scaled)
+        alloc_kv_cache, dequantize_rows, quantize_rows, write_kv_scaled)
 
     N, clen, page, KH, G, D = 32, 256, 16, 2, 2, 64
     for kv, store in KV_KINDS.items():
         for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             c = make_spec_case(2, N, 1, 0, KH, G, D, page, clen, dtype, seed=6500, full=True, kv=kv)
+            # the committed cache in a pool with trash rows, which the write needs
+            pool = alloc_kv_cache(1, c["k"].shape[1] // page, page, KH, D, store, "cuda")
+            for name, t in (("k", pool.k), ("v", pool.v), ("ks", pool.k_scale),
+                            ("vs", pool.v_scale)):
+                t[0].copy_(c[name])
+                c[name] = t[0]
             r = np.random.RandomState(6501)
             raw_k = torch.from_numpy(r.randn(2, N, KH, D).astype(np.float32) * 600).to("cuda", dtype)
             raw_v = torch.from_numpy(r.randn(2, N, KH, D).astype(np.float32) * 600).to("cuda", dtype)
@@ -1876,6 +1897,289 @@ def profile_decode(llm, prompts, name, sp, tag=""):
 
 
 # ---------------------------------------------------------------------------
+# Phase `engine`: the serving host path (pipeline, CUDA graphs, bench_engine)
+# ---------------------------------------------------------------------------
+
+# name: (Config.enforce_eager, Config.jacobi_async_host)
+ENGINE_MODES = {"eager-sync": (True, False), "graph-sync": (False, False),
+                "graph-async": (False, True)}
+
+
+def _sync():
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def graph_summary(tag, engine):
+    """One line: the engine's captured graphs, each bucket's capture time and
+    graph-pool growth, and the kernel launches inside each graph."""
+    progs = engine.programs
+    per = ", ".join(f"{'/'.join(map(str, k))} {progs.capture_s[k]:.2f}s "
+                    f"{progs.pool_bytes[k] / 2**20:.1f} MiB {progs.launches[k][0]} paged"
+                    for k in progs.capture_s)
+    log(f"[{tag}] {progs.num_graphs} CUDA graphs captured, pool "
+        f"{sum(progs.pool_bytes.values()) / 2**20:.1f} MiB in all (memory_reserved growth "
+        f"across each capture): {per or 'none'}")
+
+
+def engine_demo(counter, launches_out):
+    """The demo checkpoint in f32 on the default engine (graphs, async):
+    `ar`, `jacobi` and `mr` (policy on) through `bench_generate.run`, 2033
+    tokens, 64/64 EOS, Jacobi TPF in [4.55, 4.85]; `jacobi` again on the
+    eager synchronous engine, whose chunk_forwards is printed beside."""
+    from jacobiforcing_tpu_torch.apps import bench_generate
+
+    with open(os.path.join(DEMO, "tpf_demo.json")) as f:
+        meta = json.load(f)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_engine_", dir=os.path.join(REPO, "build"))
+    faults, fwds = [], {}
+    for mode, strategies in (("graph-async", ("jacobi", "ar", "mr")), ("eager-sync", ("jacobi",))):
+        eager, async_on = ENGINE_MODES[mode]
+        llm = demo_llm(meta, enforce_eager=eager, jacobi_async_host=async_on)
+        for strategy in strategies:
+            engine = llm.engine
+            args = bench_generate.make_parser().parse_args([])
+            args.strategy = strategy
+            args.n_token_seq_len = int(meta["block_len"])
+            args.max_blocks = 2 if strategy == "mr" else 1
+            args.n_gram_pool_size = 4
+            args.max_new_tokens = int(meta["max_tokens"])
+            args.max_iterations = 1 << 20
+            args.dataset = os.path.join(DEMO, "heldout_prompts.jsonl")
+            args.output_dir = os.path.join(out_dir, f"{mode}-{strategy}")
+            fw0 = engine.stats["chunk_forwards"]
+            zero_counts(counter)
+            t0 = time.perf_counter()
+            agg, _ = bench_generate.run(args, engine=engine)
+            dt = time.perf_counter() - t0
+            launches = launches_out[f"engine_demo_{mode}_{strategy}"] = read_counts()
+            fwds[(mode, strategy)] = engine.stats["chunk_forwards"] - fw0
+            tpf = agg["aggregate_tokens_per_forward"]
+            log(f"[engine-demo] {mode} {strategy}: total_tokens={agg['total_tokens']} "
+                f"eos={agg['n_eos_terminated']}/{agg['n_examples']} aggregate_tpf={tpf} "
+                f"chunk_forwards={fwds[(mode, strategy)]} wall={dt:.2f}s; graphs "
+                f"{engine.programs.num_graphs}; kernel launches {launches}; plain attention "
+                f"calls on CUDA: {counter.n}")
+            if (agg["total_tokens"], agg["n_eos_terminated"]) != (DEMO_TOKENS, 64):
+                faults.append(f"{mode} {strategy}: {agg['total_tokens']} tokens, "
+                              f"{agg['n_eos_terminated']}/64 EOS")
+            if strategy == "jacobi" and not 4.55 <= tpf <= 4.85:
+                faults.append(f"{mode} jacobi TPF {tpf} outside [4.55, 4.85]")
+            if launches["paged_attention"] <= 0 or counter.n:
+                faults.append(f"{mode} {strategy} did not go through the kernels alone")
+        if not eager:
+            graph_summary("engine-demo", llm.engine)
+        llm.exit()
+    # both engines start `jacobi` from the same generator state
+    log(f"[engine-demo] jacobi chunk_forwards: graph-async {fwds[('graph-async', 'jacobi')]}, "
+        f"eager-sync {fwds[('eager-sync', 'jacobi')]} (the random draft tails' draws may "
+        f"differ, the tokens may not)")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    if faults:
+        raise AssertionError("engine demo: " + "; ".join(faults))
+
+
+def trip_device_ms(engine):
+    """Wrap every program of `engine` so that each trip (graph replay or
+    eager trip) is bracketed by CUDA events; returns a function giving the
+    summed device milliseconds between the brackets so far.  For a graph
+    replay that is the graph's execution; for an eager trip it includes the
+    gaps the host leaves between launches."""
+    pairs = []
+
+    def bracket(fn):
+        def call():
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn()
+            b.record()
+            pairs.append((a, b))
+            return out
+        return call
+
+    for prog in engine.programs.programs.values():
+        if hasattr(prog, "trip"):
+            prog.trip = bracket(prog.trip)
+        else:
+            prog.step = bracket(prog.step)
+
+    def total():
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs)
+
+    return total
+
+
+def profile_busy(llm, prompts, sp):
+    """(wall ms, device busy ms summed over the profiler's kernel records,
+    paged-kernel ms, paged-kernel records) of one run under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        llm.generate(prompts, sp)
+        _sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = paged = 0.0
+    n_paged = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = e.self_device_time_total / 1e3
+        busy += t
+        if "paged_attention" in e.key.lower():
+            paged += t
+            n_paged += e.count
+    return wall, busy, paged, n_paged
+
+
+def engine_full_width(counter, launches_out, cfg, params):
+    """Qwen2.5-7B widths, bf16, 4 requests, block 64, 128 new tokens, `ar`
+    and `jacobi` on three engines (eager-sync, graph-sync, graph-async):
+    token match against the eager engine (must be 1.0), equal loop trips,
+    iterations/s in turns, the device's busy share, graphs and memory."""
+    from dataclasses import replace
+
+    from jacobiforcing_tpu_torch.engine.llm import LLM
+
+    prompts = full_width_prompts(cfg)
+    sps = {k: v for k, v in full_width_sps().items() if k in ("autoregressive", "jacobi")}
+    zero_counts(counter)
+    llms = {}
+    for mode, (eager, async_on) in ENGINE_MODES.items():
+        if DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        llms[mode] = LLM(device=DEV, model_cfg=cfg, params=params, num_kv_pages=64,
+                         kvcache_page_size=256, eos=-1, enforce_eager=eager,
+                         jacobi_async_host=async_on)
+        t0 = time.perf_counter()
+        tags = llms[mode].warmup(strategies=("ar", "jacobi"), block_lens=(64,),
+                                 batch_buckets=(4,), prefill_token_buckets=(1024,))
+        _sync()
+        peak = torch.cuda.max_memory_allocated() / 2**30 if DEV == "cuda" else float("nan")
+        log(f"[engine-full] {mode}: warmup {time.perf_counter() - t0:.1f}s {tags}; peak memory "
+            f"{peak:.2f} GiB")
+        if not eager:
+            graph_summary("engine-full", llms[mode].engine)
+    streams, trips, faults = {}, {}, []
+    for strategy, sp in sps.items():
+        for mode, llm in llms.items():
+            stats0 = dict(llm.stats)
+            zero_counts(counter)
+            _sync()
+            t0 = time.perf_counter()
+            outs = llm.generate(prompts, sp)
+            _sync()
+            wall = time.perf_counter() - t0
+            launches = launches_out[f"engine_{mode}_{strategy}"] = read_counts()
+            streams[(mode, strategy)] = [o["token_ids"] for o in outs]
+            key = "ar_steps" if strategy == "autoregressive" else "chunk_forwards"
+            trips[(mode, strategy)] = llm.stats[key] - stats0[key]
+            log(f"[engine-full] {mode} {strategy}: {trips[(mode, strategy)]} {key} in "
+                f"{wall:.3f}s; kernel launches {launches}; plain attention calls on CUDA: "
+                f"{counter.n}")
+            if launches["paged_attention"] <= 0 or counter.n:
+                faults.append(f"{mode} {strategy} did not go through the kernels alone")
+        for mode in ("graph-sync", "graph-async"):
+            ref, got = streams[("eager-sync", strategy)], streams[(mode, strategy)]
+            rate = [sum(x == y for x, y in zip(a, b)) / max(len(a), 1) for a, b in zip(ref, got)]
+            same_trips = trips[(mode, strategy)] == trips[("eager-sync", strategy)]
+            log(f"[engine-full] {strategy} {mode} against eager-sync: token match rate per request "
+                f"{[round(r, 4) for r in rate]}; loop trips {trips[(mode, strategy)]} vs "
+                f"{trips[('eager-sync', strategy)]} ({'equal' if same_trips else 'DIFFER'})")
+            if min(rate) < 1.0 or not same_trips:
+                faults.append(f"{strategy} {mode}: match {min(rate)}, trips equal {same_trips}")
+    # iterations/s (AR steps/s) in turns: E GS GA GA GS E
+    order = list(ENGINE_MODES) + list(ENGINE_MODES)[::-1]
+    for strategy, sp in sps.items():
+        key = "ar_steps" if strategy == "autoregressive" else "chunk_forwards"
+        rates = {m: [] for m in ENGINE_MODES}
+        for mode in order:
+            llm = llms[mode]
+            n0 = llm.stats[key]
+            _sync()
+            t0 = time.perf_counter()
+            llm.generate(prompts, sp)
+            _sync()
+            rates[mode].append((llm.stats[key] - n0) / (time.perf_counter() - t0))
+        base = sum(rates["eager-sync"]) / 2
+        log(f"[engine-rate] {strategy} in turns (E GS GA GA GS E), iterations/s: " + "; ".join(
+            f"{m} {', '.join(f'{r:.2f}' for r in rs)} (mean {sum(rs) / 2:.2f}, "
+            f"{sum(rs) / 2 / base:.3f}x eager-sync)" for m, rs in rates.items()))
+    # the device's busy share: torch.profiler's kernel records over a
+    # 12-token Jacobi run; for the graph engines also CUDA events around
+    # each replay (the profiler may not see kernels inside a graph)
+    sp12 = replace(sps["jacobi"], max_tokens=12)
+    for mode, llm in llms.items():
+        if DEV != "cuda":
+            continue
+        wall, busy, paged, n_paged = profile_busy(llm, prompts, sp12)
+        line = (f"[engine-busy] {mode} jacobi 4 x 12 tokens: wall {wall:.1f} ms under the "
+                f"profiler, kernel records {busy:.1f} ms = {busy / wall * 100:.1f}% busy; "
+                f"paged_attention {paged:.2f} ms in {n_paged} records")
+        measure = trip_device_ms(llm.engine)
+        _sync()
+        t0 = time.perf_counter()
+        llm.generate(prompts, sp12)
+        _sync()
+        wall2 = (time.perf_counter() - t0) * 1e3
+        trip_ms = measure()
+        what = "graph replays" if mode != "eager-sync" else "eager trip spans (host gaps included)"
+        log(line + f"; without the profiler: wall {wall2:.1f} ms, {what} {trip_ms:.1f} ms = "
+            f"{trip_ms / wall2 * 100:.1f}% of wall")
+    for llm in llms.values():
+        llm.exit()
+    if DEV == "cuda":
+        log(f"[engine-full] peak torch.cuda.max_memory_allocated since the last engine: "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if faults:
+        raise AssertionError("engine full width: " + "; ".join(faults))
+
+
+def engine_bench(cfg, params):
+    """`apps/bench_engine.run_engine_bench` at Qwen2.5-7B widths: Jacobi, B 8,
+    prompt 512, 128 new tokens, L 64, chunk_iters 8, 16 requests; random bf16
+    weights on eager-sync, graph-sync and graph-async, then the app's default
+    W8A8 model with an fp8 KV cache on graph-async.  Each result is a JSON
+    line of its own."""
+    from jacobiforcing_tpu_torch.apps.bench_engine import run_engine_bench
+
+    kw = dict(B=8, prompt_len=512, max_tokens=128, L=64, chunk_iters=8, requests=16,
+              device=DEV)
+    runs = [(mode, dict(model_cfg=cfg, params=params)) for mode in ENGINE_MODES]
+    runs.append(("graph-async", dict(kv_cache_dtype="fp8")))
+    for mode, extra in runs:
+        eager, async_on = ENGINE_MODES[mode]
+        os.environ["JF_ENFORCE_EAGER"] = "1" if eager else "0"
+        os.environ["JF_ASYNC_HOST"] = "1" if async_on else "0"
+        t0 = time.perf_counter()
+        try:
+            out = run_engine_bench(**{**kw, **extra})
+        finally:
+            os.environ.pop("JF_ENFORCE_EAGER")
+            os.environ.pop("JF_ASYNC_HOST")
+        gc.collect()
+        log(f"[engine-bench] {mode} {'bf16' if 'params' in extra else 'W8A8 + fp8 KV'}: "
+            f"{time.perf_counter() - t0:.1f}s with its warmup")
+        log(json.dumps({"mode": mode, **out}))
+
+
+def phase_engine(counter, launches_out, params=None):
+    from jacobiforcing_tpu_torch.models.qwen import ModelConfig, init_params
+
+    engine_demo(counter, launches_out)
+    cfg = ModelConfig()
+    if params is None:
+        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    engine_full_width(counter, launches_out, cfg, params)
+    engine_bench(cfg, params)
+    return params
+
+
+# ---------------------------------------------------------------------------
 # Phase `train`: the consistency trainer end to end
 # ---------------------------------------------------------------------------
 
@@ -2275,7 +2579,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phases = (sys.argv[1].split(",") if len(sys.argv) > 1
-              else ["kernel", "train_kernel", "demo", "sampling", "full", "full_quant", "train"])
+              else ["kernel", "train_kernel", "demo", "sampling", "full", "engine", "full_quant",
+                    "train"])
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
@@ -2317,6 +2622,8 @@ def main() -> int:
         run("sampling", phase_sampling, counter, launches)
     if "full" in phases:
         params = run("full", phase_full_width, counter, launches)
+    if "engine" in phases:
+        params = run("engine", phase_engine, counter, launches, params)
     if "full_quant" in phases:
         run("full_quant", phase_full_quant, counter, launches)
     if "train" in phases:

@@ -9,12 +9,17 @@ single-block Jacobi, rejection-sampling Jacobi (`jacobi_nongreedy`, shaped by
 (MR) decoding, so the MR options (`pad`, the `jacobi_mr_*` auto-policy fields,
 the spawn / lookahead / pool fields) are read as in the JAX engine, and so are
 `quantization` ("int8" weight-only, "w8a8") and `kv_cache_dtype` ("fp8",
-"int8", "bf16"); any other string there raises `ValueError`.  Options the
-port does not serve yet raise `NotImplementedError` when set instead of being
-ignored: tensor/data parallelism and the one-chunk-lag async host pipeline.
-The XLA compilation-cache and TPU memory-sizing fields have no counterpart
-here, nor do `jacobi_enabled` and `enforce_eager`, which neither package
-reads.
+"int8", "bf16"); any other string there raises `ValueError`.
+
+Single-block Jacobi chunks run through the JAX engine's one-chunk-lag
+speculative host pipeline (`jacobi_async_host`, on by default).  On a CUDA
+device the AR step and every Jacobi trip replay one CUDA graph per shape
+bucket, the counterpart of the JAX package's one compiled executable per
+bucket; `enforce_eager=True` (the reference engine's switch of that name)
+runs them eagerly instead.  Tensor and data parallelism are not served yet
+and raise `NotImplementedError` when set.  The XLA compilation-cache and TPU
+memory-sizing fields have no counterpart here, nor does `jacobi_enabled`,
+which neither package reads.
 """
 
 from __future__ import annotations
@@ -79,9 +84,15 @@ class Config:
     jacobi_chunk_tokens: int = 256
     # > 0: iteration-budget chunking (a fixed number of loop trips per chunk).
     jacobi_chunk_iters: int = 0
-    # The port's engine is synchronous; the one-chunk-lag pipeline of the
-    # JAX engine is not ported yet, so this must stay False.
-    jacobi_async_host: bool = False
+    # Speculative host pipeline: dispatch Jacobi chunk k+1 from chunk k's
+    # device outputs before reading chunk k back, and commit chunk k on the
+    # host while chunk k+1's first trip runs.  Exact: every finish condition
+    # is mirrored on the device, so a pending chunk's rows of finished
+    # sequences are inert; commits (and finish detection) lag one chunk.
+    jacobi_async_host: bool = True
+    # True: no CUDA graphs; the AR step and the Jacobi trips run eagerly on
+    # the card (on the CPU they always do).
+    enforce_eager: bool = False
 
     seed: int = 0
     # "int8": weight-only int8 linear layers and lm_head; "w8a8": int8 weights
@@ -102,11 +113,7 @@ class Config:
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype={self.kv_cache_dtype!r}: expected one of "
                              f"{KV_CACHE_DTYPES}")
-        _reject_unported(self, {
-            "tensor_parallel_size": 1,
-            "data_parallel_size": 1,
-            "jacobi_async_host": False,
-        })
+        _reject_unported(self, {"tensor_parallel_size": 1, "data_parallel_size": 1})
         if self.model:
             self.model_path = resolve_checkpoint_dir(self.model)
 

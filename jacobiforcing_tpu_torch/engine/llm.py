@@ -78,6 +78,11 @@ class LLM:
             prompt_ids = prompts
         return self.engine.generate(prompt_ids, sp, use_tqdm=use_tqdm)
 
+    def warmup(self, **kw):
+        """Build the kernels and capture the graphs of the serving buckets
+        (see `LLMEngine.warmup`)."""
+        return self.engine.warmup(**kw)
+
     @property
     def stats(self):
         return self.engine.stats

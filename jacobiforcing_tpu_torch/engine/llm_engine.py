@@ -4,12 +4,12 @@ PyTorch port of `jacobiforcing_tpu/engine/llm_engine.py`, all five decode
 strategies:
   * AR sequences step one token per `ar_decode_step` call (batched, padded to
     the next batch bucket);
-  * single-block Jacobi sequences run whole chunks, greedy
-    (`jacobi_chunk_greedy`) or rejection-sampling (`jacobi_chunk_nongreedy`,
-    strategy `jacobi_nongreedy`), grouped by (block_len L, ignore_eos,
-    non-greedy, top_k, top-p on), and their commits are read back right after
-    each chunk (synchronous: the JAX engine's one-chunk-lag pipeline is a
-    later slice);
+  * single-block Jacobi sequences run whole chunks of trips, greedy or
+    rejection-sampling (strategy `jacobi_nongreedy`), grouped by (block_len
+    L, ignore_eos, non-greedy, top_k, top-p on), through the JAX engine's
+    one-chunk-lag speculative host pipeline (`Config.jacobi_async_host`):
+    chunk k+1 is dispatched from chunk k's device outputs, and chunk k is
+    read back and committed on the host while chunk k+1's first trip runs;
   * on-policy rollouts (`jacobi_on_policy`) run one block per step
     (`jacobi_onpolicy_block`), grouped by (L, top_k, top-p on, greedy mode,
     accept threshold), and append one rollout record per block;
@@ -17,6 +17,12 @@ strategies:
     by (L, K, C, ignore_eos), through the measured auto-policy of
     `engine/mr_policy.py`, with exact handoffs between the MR state machine
     and the single-block program.
+
+On a CUDA device the AR step and each Jacobi trip replay one CUDA graph per
+shape bucket (`engine/graphs.py`; `Config.enforce_eager` turns them off);
+prefill, MR chunks and on-policy blocks run eagerly.  `warmup` drives
+synthetic requests through every bucket, which builds the kernels and
+captures the graphs before serving.
 
 Host randomness is the JAX engine's: a `np.random.RandomState(config.seed)`
 draws the bootstrap draft appended at prefill, every random draft tail of the
@@ -45,17 +51,62 @@ import torch
 from jacobiforcing_tpu_torch.config import Config, SamplingParams
 from jacobiforcing_tpu_torch.engine import runner
 from jacobiforcing_tpu_torch.engine.block_manager import BlockManager
+from jacobiforcing_tpu_torch.engine.graphs import DecodePrograms
 from jacobiforcing_tpu_torch.engine.mr_policy import ARM_SINGLE, MRAutoPolicy
 from jacobiforcing_tpu_torch.engine.multiblock import STATE_KEYS, jacobi_chunk_multiblock
 from jacobiforcing_tpu_torch.engine.scheduler import Scheduler
-from jacobiforcing_tpu_torch.engine.sequence import Sequence
+from jacobiforcing_tpu_torch.engine.sequence import Sequence, SequenceStatus
 from jacobiforcing_tpu_torch.models.qwen import ModelConfig, rope_table
 from jacobiforcing_tpu_torch.ops.kv_cache import alloc_kv_cache, needs_row_scales
 from jacobiforcing_tpu_torch.ops.quant import int_mm_layout, quantize_params
 from jacobiforcing_tpu_torch.utils.device import resolve_device
+from jacobiforcing_tpu_torch.utils.profiling import get_profiler
 
 
 KV_DTYPES = {"fp8": torch.float8_e4m3fn, "int8": torch.int8, "bf16": torch.bfloat16}
+# the outputs of a Jacobi chunk the next chunk of its group starts from
+_HANDLES = ("tokens", "cur_len", "draft", "eos", "iters")
+# what the host reads back of a chunk to commit it
+_READBACK = ("new_tokens", "win_start", "cur_len", "iters", "draft", "generated")
+
+
+class _HostCopy:
+    """A chunk's read-back, queued right behind its last trip: copies into
+    pinned host memory that do not block, so `get` waits for them alone and
+    not for trips queued after them."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor]):
+        self.event = None
+        if next(iter(tensors.values())).is_cuda:
+            self.host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                         .copy_(v, non_blocking=True) for k, v in tensors.items()}
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = tensors
+
+    def get(self) -> Dict[str, np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        return {k: v.numpy() for k, v in self.host.items()}
+
+
+class _PendingChunk:
+    """One dispatched Jacobi chunk whose tokens are not committed yet (the
+    speculative host pipeline): its device outputs (`res`, the next chunk's
+    starting state), their read-back, and what the commit checks."""
+
+    __slots__ = ("res", "host", "seqs", "expected_lens", "iters0", "stat_key")
+
+    def __init__(self, res, host, seqs, expected_lens, iters0, stat_key=None):
+        self.res = res
+        self.host = host
+        self.seqs = seqs
+        self.expected_lens = expected_lens
+        self.iters0 = iters0
+        # a stats counter credited with the chunk's iterations at commit time
+        # ("mr_single" for MR groups served by the single arm)
+        self.stat_key = stat_key
 
 
 def _bucket(n: int, buckets: PySeq[int]) -> int:
@@ -85,6 +136,9 @@ class LLMEngine:
     ):
         self.config = config
         self.device = resolve_device(device)
+        # what the profiler's timers wait for (PROFILE=1); nothing on the CPU
+        self._sync = (lambda: torch.cuda.synchronize(self.device)) \
+            if self.device.type == "cuda" else None
         if params is None:
             from jacobiforcing_tpu_torch.utils.loader import load_checkpoint
 
@@ -121,6 +175,8 @@ class LLMEngine:
         )
         self.block_manager = BlockManager(npages, page)
         self.scheduler = Scheduler(config, self.block_manager)
+        # a preempted sequence's mirrors must be current before it is requeued
+        self.scheduler.on_preempt = lambda seq: self._land([seq])
 
         self.rng = np.random.RandomState(config.seed)
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
@@ -132,12 +188,22 @@ class LLMEngine:
             "ar_steps": 0, "chunk_calls": 0, "chunk_forwards": 0,
         }
         self._mr_policies: Dict[tuple, MRAutoPolicy] = {}
+        # the AR step and the Jacobi trips, one program per shape bucket:
+        # CUDA graphs on the card unless enforce_eager
+        self.programs = DecodePrograms(
+            self.params, model_cfg, self.rope, self.kv, self.generator,
+            pages_bucket=self.pages_bucket, cap_tokens=self.cap_tokens,
+            chunk_budget=config.jacobi_chunk_tokens, chunk_iters=config.jacobi_chunk_iters,
+            capture=self.device.type == "cuda" and not config.enforce_eager)
+        # outstanding speculative Jacobi chunks by group signature
+        self._pending: Dict[tuple, _PendingChunk] = {}
 
     # ------------------------------------------------------------------
     def _pages_from_memory(self, page: int, kv_dtype: torch.dtype) -> int:
         """Size the KV pool from free device memory (40k-page hard cap): the
         storage type's element size, plus 4 bytes per row and KV head for each
-        scale plane of a narrow type."""
+        scale plane of a narrow type.  With CUDA graphs, room for the graph
+        pool is kept back first (`_graph_pool_estimate`)."""
         if self.device.type != "cuda":
             raise ValueError("on the CPU pass num_kv_pages: there is no device memory to size "
                              "the KV pool from")
@@ -147,9 +213,22 @@ class LLMEngine:
         if needs_row_scales(kv_dtype):
             bytes_per_tok += 2 * mc.num_layers * mc.num_kv_heads * 4
         free, total = torch.cuda.mem_get_info(self.device)
-        avail = max(int(total * self.config.hbm_utilization) - (total - free), 1 << 28)
+        avail = int(total * self.config.hbm_utilization) - (total - free)
+        if not self.config.enforce_eager:
+            avail -= self._graph_pool_estimate()
+        avail = max(avail, 1 << 28)
         npages = int(avail // (bytes_per_tok * page))
         return max(16, min(npages, 40_000))
+
+    def _graph_pool_estimate(self) -> int:
+        """Bytes the graphs' shared pool may hold: the transient tensors of
+        the largest trip (largest batch bucket x block length rows): three
+        float32 vocab chunks of the head (32,768 columns) and six MLP-wide
+        activations per row, plus three [rows, V] float32 tensors for the
+        top-k / top-p verify.  The pool holds what its largest graph needs."""
+        mc, cfg = self.model_cfg, self.config
+        rows = cfg.batch_buckets[-1] * cfg.jacobi_block_len
+        return rows * 4 * (3 * 32768 + 6 * mc.intermediate_size + 3 * mc.vocab_size)
 
     # ------------------------------------------------------------------
     def add_request(self, token_ids: List[int], sampling_params: SamplingParams) -> Sequence:
@@ -178,27 +257,49 @@ class LLMEngine:
     # ------------------------------------------------------------------
     def step(self) -> List[Sequence]:
         seqs, is_prefill = self.scheduler.schedule()
+        flushed: List[Sequence] = []
         if not seqs:
+            if self._pending:
+                # drain: commit the outstanding chunks so that their sequences
+                # can retire (the scheduler sees a finish only once committed)
+                flushed = self._flush_pending()
+                self.scheduler.postprocess(flushed)
+                return [s for s in flushed if s.is_finished]
             return []
         if is_prefill:
+            if self._pending:
+                # the decode groups change after this prefill: land their
+                # pending work first (and let any finish free its pages)
+                flushed = self._flush_pending()
+                self.scheduler.postprocess(flushed)
             max_b = self.config.batch_buckets[-1]
             for i in range(0, len(seqs), max_b):
                 self._run_prefill(seqs[i : i + max_b])
         else:
             self._run_decode(seqs)
         self.scheduler.postprocess(seqs)
-        return [s for s in seqs if s.is_finished]
+        # a pending chunk whose sequences all retired in this step is inert
+        # (every finish condition is mirrored on the device): drop it
+        for sig in [k for k, p in self._pending.items()
+                    if all(s.status is not SequenceStatus.RUNNING for s in p.seqs)]:
+            del self._pending[sig]
+        finished = [s for s in seqs if s.is_finished]
+        in_batch = set(map(id, seqs))
+        return finished + [s for s in flushed if s.is_finished and id(s) not in in_batch]
 
     # ------------------------------------------------------------------
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    def _pad_block_table(self, seqs: List[Sequence], B: int) -> torch.Tensor:
+    def _host_block_table(self, seqs: List[Sequence], B: int) -> torch.Tensor:
         bt = np.full((B, self.pages_bucket), -1, np.int32)
         for i, s in enumerate(seqs):
             tab = s.block_table[: self.pages_bucket]
             bt[i, : len(tab)] = tab
-        return self._tensor(bt)
+        return torch.from_numpy(bt)
+
+    def _pad_block_table(self, seqs: List[Sequence], B: int) -> torch.Tensor:
+        return self._host_block_table(seqs, B).to(self.device)
 
     @staticmethod
     def _is_jacobi(s: Sequence) -> bool:
@@ -223,11 +324,17 @@ class LLMEngine:
             starts[i] = c
             totals[i] = c + seg_lens[i]
         bt = self._pad_block_table(seqs, B)
+        prof = get_profiler(self._sync)
+        if prof:
+            prof.record_bucket("prefill_segment", (B, T))
+            prof.start("prefill.forward")
         self.kv, _, _ = runner.prefill(
             self.params, self.model_cfg, self.rope, self._tensor(ids),
             self._tensor(starts), self._tensor(totals), self._tensor(totals),
             self.kv, bt, n_out=1,
         )
+        if prof:
+            prof.stop("prefill.forward")
         for i, s in enumerate(seqs):
             s.num_cached_tokens += seg_lens[i]
         self.stats["prefill_tokens"] += sum(seg_lens)
@@ -271,6 +378,10 @@ class LLMEngine:
         prompts_a[: len(seqs)] = prompts_l
 
         bt = self._pad_block_table(seqs, B)
+        prof = get_profiler(self._sync)
+        if prof:
+            prof.record_bucket("prefill", (B, T, n_out))
+            prof.start("prefill.forward")
         self.kv, last_logits, draft = runner.prefill(
             self.params, self.model_cfg, self.rope, self._tensor(ids),
             self._tensor(starts_a), self._tensor(totals_a), self._tensor(prompts_a),
@@ -281,6 +392,8 @@ class LLMEngine:
         if need_logits:
             last_logits = last_logits.float().cpu().numpy()
         draft = draft.cpu().numpy()
+        if prof:
+            prof.stop("prefill.forward")
         self.stats["prefill_tokens"] += sum(len(x) for x in suffixes)
 
         for i, s in enumerate(seqs):
@@ -337,94 +450,141 @@ class LLMEngine:
                 self._jacobi_chunk(group[i : i + max_b], L, -1 if ignore_eos else self.config.eos,
                                    nongreedy=nongreedy, top_k=top_k, use_top_p=use_top_p)
 
-    def _ar_step(self, seqs: List[Sequence]) -> None:
+    def _ar_forward(self, seqs: List[Sequence], temps: np.ndarray) -> np.ndarray:
+        """One AR decode step of `seqs` (padded to their batch bucket) through
+        the bucket's program; returns the next token of every row."""
         B = _bucket(len(seqs), self.config.batch_buckets)
         last = np.zeros((B,), np.int32)
         lens = np.ones((B,), np.int32)
-        temps = np.zeros((B,), np.float32)
         active = np.zeros((B,), bool)
         for i, s in enumerate(seqs):
             last[i] = s.last_token
             lens[i] = len(s)
-            temps[i] = s.sampling_params.temperature
             active[i] = True
-        bt = self._pad_block_table(seqs, B)
-        self.kv, next_tokens = runner.ar_decode_step(
-            self.params, self.model_cfg, self.rope, self.kv,
-            self._tensor(last), self._tensor(lens), bt, self._tensor(active),
-            self._tensor(temps), self.generator,
-        )
-        next_tokens = next_tokens.cpu().numpy()
+        prog = self.programs.ar(B)
+        prog.load(last_tokens=torch.from_numpy(last), seq_lens=torch.from_numpy(lens),
+                  block_tables=self._host_block_table(seqs, B),
+                  active=torch.from_numpy(active), temperature=torch.from_numpy(temps))
+        return prog.step().cpu().numpy()
+
+    def _ar_step(self, seqs: List[Sequence]) -> None:
+        B = _bucket(len(seqs), self.config.batch_buckets)
+        temps = np.zeros((B,), np.float32)
+        for i, s in enumerate(seqs):
+            temps[i] = s.sampling_params.temperature
+        prof = get_profiler(self._sync)
+        if prof:
+            prof.start("forward")
+            prof.add_iteration()
+        next_tokens = self._ar_forward(seqs, temps)
+        if prof:
+            prof.stop("forward")
+            prof.add_tokens(len(seqs))
         for i, s in enumerate(seqs):
             s.extend_tokens([int(next_tokens[i])])
             s.num_cached_tokens = len(s) - 1
             self.stats["generated_tokens"] += 1
         self.stats["ar_steps"] += 1
 
-    def _jacobi_chunk(self, seqs: List[Sequence], L: int, eos_id: int,
-                      stat_key: Optional[str] = None, *, nongreedy: bool = False,
-                      top_k: int = -1, use_top_p: bool = False) -> None:
-        """Run one single-block Jacobi chunk for a group, greedy or
-        rejection-sampling, and commit its tokens; `stat_key` names a counter
-        that is credited the chunk's iterations."""
+    # -- speculative host pipeline ------------------------------------------
+    # A Jacobi chunk is a pure device-state transition: what it carries
+    # (tokens, cur_len, draft, eos, iters; the KV pool) comes from the last
+    # chunk's outputs, and the rest is invariant across chunks (len_limit =
+    # prompt + max_tokens, absolute; max_iters; temperatures) or rebuilt on
+    # the host from small tables (block tables, capacity).  So chunk k+1 can
+    # be dispatched from chunk k's device outputs before chunk k is read back
+    # (the JAX engine's one-chunk-lag host commit): here chunk k is committed
+    # on the host while chunk k+1's first trip runs.  Every finish condition
+    # (EOS, len_limit, max_iters, capacity) is mirrored on the device, so a
+    # pending chunk's rows of sequences that finished meanwhile are inert; a
+    # dropped pending chunk loses uncommitted work only, never correctness.
+
+    def _chunk_sig(self, seqs, L, eos_id, nongreedy, top_k, use_top_p):
+        return (tuple(s.seq_id for s in seqs), L, eos_id, nongreedy, top_k, use_top_p)
+
+    def _dispatch_chunk(self, seqs: List[Sequence], L: int, eos_id: int, nongreedy: bool,
+                        top_k: int, use_top_p: bool,
+                        handles: Optional[Dict[str, torch.Tensor]] = None) -> runner.ChunkRun:
+        """Load one Jacobi chunk into its bucket's program and launch its
+        first trip.  The carried state comes from `handles` (the device
+        outputs of the group's previous chunk) or is built on the host."""
         B = _bucket(len(seqs), self.config.batch_buckets)
-        n = len(seqs)
         capacity = np.zeros((B,), np.int32)
         len_limit = np.zeros((B,), np.int32)
         temps = np.ones((B,), np.float32)
         top_ps = np.ones((B,), np.float32)
         max_iters = np.ones((B,), np.int32)
-        tokens = np.zeros((B, self.cap_tokens), np.int32)
-        cur_len = np.ones((B,), np.int32)
-        eos = np.ones((B,), bool)  # padding rows inert
-        iters0 = np.zeros((B,), np.int32)
-        draft = np.zeros((B, L), np.int32)
         for i, s in enumerate(seqs):
             capacity[i] = min(self.block_manager.capacity_tokens(s), self.cap_tokens - 1)
+            # absolute (prompt + max_tokens), so a chunk dispatched before the
+            # previous one is committed needs no new budget
             len_limit[i] = len(s) + max(0, s.max_tokens - s.num_completion_tokens)
             max_iters[i] = min(s.sampling_params.jacobi_max_iterations, 2**30)
             temps[i] = s.sampling_params.temperature
             top_ps[i] = s.sampling_params.top_p
-            tokens[i, : len(s)] = s.token_ids
-            cur_len[i] = len(s)
-            eos[i] = False
-            iters0[i] = s.jacobi_iters
-            if s.draft is not None:
-                draft[i] = s.draft
-            else:
-                pf = s.prefill_draft
-                ncopy = 0
-                if pf is not None:
-                    ncopy = min(len(pf), L - 1)
-                    draft[i, 1 : 1 + ncopy] = pf[:ncopy]
-                    s.prefill_draft = None
-                if ncopy < L - 1:
-                    draft[i, 1 + ncopy :] = self.rng.randint(
-                        0, self.model_cfg.vocab_size, L - 1 - ncopy
-                    )
-            draft[i, 0] = s.last_token
-        state = (self._tensor(tokens), self._tensor(cur_len), self._tensor(draft),
-                 self._tensor(eos), self._tensor(iters0), self._pad_block_table(seqs, B),
-                 self._tensor(capacity), self._tensor(len_limit))
-        chunking = dict(chunk_budget=self.config.jacobi_chunk_tokens,
-                        chunk_iters=self.config.jacobi_chunk_iters)
-        if nongreedy:
-            res = runner.jacobi_chunk_nongreedy(
-                self.params, self.model_cfg, self.rope, self.kv, *state,
-                self._tensor(temps), self._tensor(top_ps), self.generator, eos_id,
-                self._tensor(max_iters), top_k=top_k, use_top_p=use_top_p, **chunking,
-            )
-        else:
-            res = runner.jacobi_chunk_greedy(
-                self.params, self.model_cfg, self.rope, self.kv, *state, self.generator,
-                eos_id, self._tensor(max_iters), **chunking,
-            )
-        self.kv = res["kv"]
-        window, starts, cur_out, iters_out, draft_out, gen = (
-            res[k].cpu().numpy()
-            for k in ("new_tokens", "win_start", "cur_len", "iters", "draft", "generated")
-        )
-        for i, s in enumerate(seqs):
+        if handles is None:
+            tokens = np.zeros((B, self.cap_tokens), np.int32)
+            cur_len = np.ones((B,), np.int32)
+            eos = np.ones((B,), bool)  # padding rows inert
+            iters = np.zeros((B,), np.int32)
+            draft = np.zeros((B, L), np.int32)
+            for i, s in enumerate(seqs):
+                tokens[i, : len(s)] = s.token_ids
+                cur_len[i] = len(s)
+                # a sequence whose EOS a flush just committed stays inert
+                # until the scheduler retires it
+                eos[i] = eos_id >= 0 and s.num_completion_tokens > 0 and s.last_token == eos_id
+                iters[i] = s.jacobi_iters
+                if s.draft is not None:
+                    draft[i] = s.draft
+                else:
+                    pf = s.prefill_draft
+                    ncopy = 0
+                    if pf is not None:
+                        ncopy = min(len(pf), L - 1)
+                        draft[i, 1 : 1 + ncopy] = pf[:ncopy]
+                        s.prefill_draft = None
+                    if ncopy < L - 1:
+                        draft[i, 1 + ncopy :] = self.rng.randint(
+                            0, self.model_cfg.vocab_size, L - 1 - ncopy
+                        )
+                draft[i, 0] = s.last_token
+            handles = {k: torch.from_numpy(v) for k, v in
+                       zip(_HANDLES, (tokens, cur_len, draft, eos, iters))}
+        prog = self.programs.jacobi(B, L, nongreedy, top_k, use_top_p)
+        prog.buf.load(**handles, cur_len0=handles["cur_len"], iters0=handles["iters"],
+                      generated=0, block_tables=self._host_block_table(seqs, B),
+                      capacity=torch.from_numpy(capacity), len_limit=torch.from_numpy(len_limit),
+                      max_iters=torch.from_numpy(max_iters), temperature=torch.from_numpy(temps),
+                      top_p=torch.from_numpy(top_ps), eos_id=eos_id)
+        chunk = runner.ChunkRun(prog.trip, prog.buf, self.config.jacobi_chunk_tokens,
+                                self.config.jacobi_chunk_iters)
+        return chunk.start()
+
+    def _finish_chunk(self, chunk: runner.ChunkRun, seqs: List[Sequence], iters0: np.ndarray,
+                      stat_key: Optional[str]) -> _PendingChunk:
+        """Run the chunk's remaining trips and queue its read-back."""
+        res = chunk.finish()
+        return _PendingChunk(res, _HostCopy({k: res[k] for k in _READBACK}), list(seqs),
+                             [len(s) for s in seqs], iters0, stat_key)
+
+    def _commit_chunk(self, pending: _PendingChunk) -> None:
+        """Commit one chunk's tokens to the host Sequence mirrors.  A row is
+        committed while its sequence is still RUNNING with the committed
+        length it had at dispatch; other rows were inert, or their work is
+        discarded on purpose."""
+        prof = get_profiler(self._sync)
+        if prof:
+            prof.start("forward")
+        host = pending.host.get()
+        window, starts, cur_out, iters_out, draft_out, gen = (host[k] for k in _READBACK)
+        if prof:
+            prof.stop("forward")
+        iters0 = pending.iters0
+        n = len(pending.seqs)
+        for i, s in enumerate(pending.seqs):
+            if s.status is not SequenceStatus.RUNNING or len(s) != pending.expected_lens[i]:
+                continue
             off = len(s) - starts[i]
             s.extend_tokens(window[i, off : off + (cur_out[i] - len(s))].tolist())
             s.num_cached_tokens = len(s) - 1
@@ -432,12 +592,72 @@ class LLMEngine:
             s.jacobi_iters = int(iters_out[i])
             self.stats["generated_tokens"] += int(gen[i])
         it_delta = int(iters_out[:n].sum() - iters0[:n].sum())
+        if prof:
+            prof.add_tokens(int(gen[:n].sum()))
+            prof.add_iteration(it_delta)
         self.stats["jacobi_iterations"] += it_delta
-        if stat_key:
-            self.stats[stat_key] = self.stats.get(stat_key, 0) + it_delta
+        if pending.stat_key:
+            self.stats[pending.stat_key] = self.stats.get(pending.stat_key, 0) + it_delta
         # loop trips this chunk = the slowest row's iterations
         self.stats["chunk_forwards"] += int((iters_out[:n] - iters0[:n]).max(initial=0))
         self.stats["chunk_calls"] += 1
+
+    def _flush_pending(self) -> List[Sequence]:
+        """Commit every outstanding chunk; returns their sequences, whose
+        state may have changed, for the caller to postprocess."""
+        touched: List[Sequence] = []
+        for pending in self._pending.values():
+            self._commit_chunk(pending)
+            touched.extend(pending.seqs)
+        self._pending.clear()
+        return touched
+
+    def _land(self, seqs: List[Sequence]) -> None:
+        """Flush before reading the mirrors of `seqs` (their length, draft,
+        last token), which lag one chunk while one of them has work pending."""
+        ids = set(map(id, seqs))
+        if any(id(s) in ids for p in self._pending.values() for s in p.seqs):
+            self._flush_pending()
+
+    def _jacobi_chunk(self, seqs: List[Sequence], L: int, eos_id: int,
+                      stat_key: Optional[str] = None, *, nongreedy: bool = False,
+                      top_k: int = -1, use_top_p: bool = False) -> None:
+        """Run one single-block Jacobi chunk for a group, greedy or
+        rejection-sampling.  With `jacobi_async_host` its tokens are committed
+        at the group's next chunk (or a flush); `stat_key` names a counter
+        credited with the chunk's iterations at commit."""
+        use_async = self.config.jacobi_async_host
+        sig = self._chunk_sig(seqs, L, eos_id, nongreedy, top_k, use_top_p)
+        pending = self._pending.pop(sig, None)
+        valid = pending is not None and all(
+            s.status is SequenceStatus.RUNNING and len(s) == el
+            for s, el in zip(pending.seqs, pending.expected_lens)
+        )
+        if use_async and valid:
+            # dispatch chunk k+1 from chunk k's outputs, then commit chunk k
+            # on the host while k+1's first trip runs
+            chunk = self._dispatch_chunk(seqs, L, eos_id, nongreedy, top_k, use_top_p,
+                                         handles={k: pending.res[k] for k in _HANDLES})
+            self._commit_chunk(pending)
+            iters0 = np.zeros_like(pending.iters0)
+            iters0[: len(seqs)] = [s.jacobi_iters for s in seqs]
+            self._pending[sig] = self._finish_chunk(chunk, seqs, iters0, stat_key)
+            return
+        if pending is not None:
+            self._commit_chunk(pending)
+        if self._pending:
+            # group membership changed (a finish without backfill, a
+            # preemption, another strategy mix): land the other groups'
+            # pending work before their mirrors drift
+            self._flush_pending()
+        iters0 = np.zeros((_bucket(len(seqs), self.config.batch_buckets),), np.int32)
+        iters0[: len(seqs)] = [s.jacobi_iters for s in seqs]
+        chunk = self._dispatch_chunk(seqs, L, eos_id, nongreedy, top_k, use_top_p)
+        rec = self._finish_chunk(chunk, seqs, iters0, stat_key)
+        if use_async:
+            self._pending[sig] = rec  # the lag begins: committed at the next call
+        else:
+            self._commit_chunk(rec)
 
     # ------------------------------------------------------------------
     def _mr_dispatch(self, seqs: List[Sequence], N: int, K: int, C: int, eos_id: int) -> None:
@@ -472,11 +692,26 @@ class LLMEngine:
             self._mr_to_single(seqs, N)
         else:
             self._mr_reenter(seqs, N, K, C)
+        locked_async = (arm == ARM_SINGLE and pol.locked == ARM_SINGLE
+                        and self.config.jacobi_async_host)
+        if not locked_async:
+            # a probing (or forced) single-arm chunk runs synchronously, so
+            # the recorded wall maps to its own committed tokens; the flush of
+            # pipeline state comes before gen0 / t0 (the JAX engine flushes
+            # inside the window, `llm_engine.py:920-921`)
+            self._land(seqs)
         gen0 = self.stats["generated_tokens"]
         t0 = time.perf_counter()
-        if arm == ARM_SINGLE:
-            # TRUE single-block: the sliding-window greedy chunk program
+        if locked_async:
+            # the LOCKED single arm rides the pipeline like any Jacobi group;
+            # its commits (and `mr_single` credits) lag one chunk
             self._jacobi_chunk(seqs, N, eos_id, stat_key="mr_single")
+        elif arm == ARM_SINGLE:
+            # TRUE single-block: the sliding-window greedy chunk program
+            iters0 = np.zeros((_bucket(len(seqs), self.config.batch_buckets),), np.int32)
+            iters0[: len(seqs)] = [s.jacobi_iters for s in seqs]
+            chunk = self._dispatch_chunk(seqs, N, eos_id, False, -1, False)
+            self._commit_chunk(self._finish_chunk(chunk, seqs, iters0, "mr_single"))
         else:
             # The three MR arms run the SAME chunk program over the SAME
             # carried state; the knobs only gate which tiers can engage:
@@ -489,7 +724,7 @@ class LLMEngine:
                 la_override=(N + 1) if arm >= 1 else None,
                 spawn_override=(N + 1) if arm == 2 else None,
             )
-        # both chunk paths end with a host readback, so this wall time is real
+        # every chunk path ends with a host read-back, so this wall time is real
         dt = time.perf_counter() - t0
         toks = self.stats["generated_tokens"] - gen0
         # drain edge: some row hit its finish condition during this chunk; its
@@ -508,6 +743,7 @@ class LLMEngine:
         can be anything; it is seeded with the RA block's draft (whose
         position in the token stream is exactly the commit point) to carry
         the MR lookahead work across the handoff."""
+        self._land([s for s in seqs if s.mb_state is not None])
         for s in seqs:
             st = s.mb_state
             if st is None:
@@ -535,23 +771,14 @@ class LLMEngine:
         need = [s for s in seqs if s.mb_state is None and s.draft is not None]
         if not need:
             return
-        B = _bucket(len(need), self.config.batch_buckets)
-        last = np.zeros((B,), np.int32)
-        lens = np.ones((B,), np.int32)
-        active = np.zeros((B,), bool)
-        for i, s in enumerate(need):
-            last[i] = s.last_token
-            lens[i] = len(s)
-            active[i] = True
+        # leaving the single arm: its pipeline lands first (the draft and the
+        # committed length read below lag one chunk while it is pending)
+        self._land(need)
         # temperature 0 -> greedy argmax; the write re-writes the seed's own
         # KV slot with identical content (a deterministic function of the
         # prefix), so the cache is unchanged and nothing is committed
-        self.kv, nxt = runner.ar_decode_step(
-            self.params, self.model_cfg, self.rope, self.kv,
-            self._tensor(last), self._tensor(lens), self._pad_block_table(need, B),
-            self._tensor(active), self._tensor(np.zeros((B,), np.float32)), self.generator,
-        )
-        nxt = nxt.cpu().numpy()
+        B = _bucket(len(need), self.config.batch_buckets)
+        nxt = self._ar_forward(need, np.zeros((B,), np.float32))
         for i, s in enumerate(need):
             old = np.asarray(s.draft)
             draft0 = np.empty((N,), np.int32)
@@ -635,7 +862,8 @@ class LLMEngine:
             sp = s.sampling_params
             tokens[i, : len(s)] = s.token_ids
             cur_len[i] = len(s)
-            eos[i] = False
+            # a sequence whose EOS a flush just committed stays inert
+            eos[i] = eos_id >= 0 and s.num_completion_tokens > 0 and s.last_token == eos_id
             iters[i] = s.jacobi_iters
             capacity[i] = min(self.block_manager.capacity_tokens(s), self.cap_tokens - 1)
             max_new[i] = max(0, s.max_tokens - s.num_completion_tokens)
@@ -649,6 +877,10 @@ class LLMEngine:
                 else int(math.ceil(sp.jacobi_lookahead_start_ratio * N))
             )
 
+        prof = get_profiler(self._sync)
+        if prof:
+            prof.record_bucket("jacobi_mr", (B, N, K, C))
+            prof.start("forward")
         res = jacobi_chunk_multiblock(
             self.params, self.model_cfg, self.rope, self.kv,
             self._tensor(tokens), self._tensor(cur_len),
@@ -660,10 +892,13 @@ class LLMEngine:
             chunk_budget=self.config.jacobi_chunk_tokens,
             chunk_iters=self.config.jacobi_chunk_iters,
         )
-        self.kv = res["kv"]
         host = {k: v.cpu().numpy() for k, v in res.items() if k != "kv"}
         toks, cur_out, iters_out, gen = (
             host[k] for k in ("tokens", "cur_len", "iters", "generated"))
+        if prof:
+            prof.stop("forward")
+            prof.add_tokens(int(gen[:n].sum()))
+            prof.add_iteration(int(iters_out[:n].sum() - iters[:n].sum()))
         for i, s in enumerate(seqs):
             s.extend_tokens(toks[i, len(s) : cur_out[i]].tolist())
             s.num_cached_tokens = len(s) - 1
@@ -763,7 +998,10 @@ class LLMEngine:
 
     # ------------------------------------------------------------------
     def exit(self) -> None:
-        """Release the KV pool and the weights' references."""
+        """Release the pending chunks, the graphs, the KV pool and the
+        weights' references."""
+        self._pending.clear()
+        self.programs = None
         self.kv = None
         self.params = None
 
@@ -780,10 +1018,86 @@ class LLMEngine:
         emitted = 0
         while not seq.is_finished:
             self.step()
+            # stream what is committed: land the chunk in flight
+            self.scheduler.postprocess(self._flush_pending())
             new = seq.completion_token_ids[emitted:]
             if new:
                 emitted += len(new)
                 yield new
+
+    def warmup(
+        self,
+        *,
+        strategies: PySeq[str] = ("ar", "jacobi"),
+        block_lens: Optional[PySeq[int]] = None,
+        batch_buckets: Optional[PySeq[int]] = None,
+        prefill_token_buckets: Optional[PySeq[int]] = None,
+    ) -> Dict[str, float]:
+        """Build the kernels and capture the graphs of the engine's shape
+        buckets by driving synthetic requests through them.
+
+        The JAX engine's `warmup` (its TPU analog of the reference's
+        CUDA-graph capture at init, model_runner.py:1552-1658) with the same
+        tags, arguments and return value.  On the card each warmed decode
+        bucket's graph is captured here, the largest batch bucket first so
+        that the smaller graphs reuse the pool it grew; the requests then run
+        through the real scheduler, prefill and decode path, so warmed shapes
+        are serving shapes.  Their tokens are discarded and their KV pages
+        freed.  `strategies` may include "ar", "jacobi", "jacobi_nongreedy"
+        and "mr".  Returns {warm_tag: seconds}.
+        """
+        cfg = self.config
+        bbs = list(batch_buckets if batch_buckets is not None else cfg.batch_buckets)
+        tbs = list(prefill_token_buckets if prefill_token_buckets is not None
+                   else cfg.prefill_token_buckets)
+        Ls = list(block_lens if block_lens is not None else [cfg.jacobi_block_len])
+        V = self.model_cfg.vocab_size
+        timings: Dict[str, float] = {}
+
+        def sp_for(strategy: str, L: int) -> SamplingParams:
+            if strategy == "ar":
+                return SamplingParams(temperature=0.0, max_tokens=2)
+            if strategy == "jacobi_nongreedy":
+                return SamplingParams(temperature=0.7, max_tokens=2, decode_strategy=self.NONGREEDY,
+                                      jacobi_block_len=L, jacobi_max_blocks=1)
+            if strategy == "mr":
+                return SamplingParams(temperature=0.0, max_tokens=2, decode_strategy=self.MR,
+                                      jacobi_block_len=L, jacobi_max_blocks=cfg.jacobi_max_blocks,
+                                      jacobi_n_gram_pool_size=cfg.jacobi_n_gram_pool_size)
+            return SamplingParams(temperature=0.0, max_tokens=2, decode_strategy="jacobi",
+                                  jacobi_block_len=L, jacobi_max_blocks=1)
+
+        def run(tag: str, n_prompts: int, prompt_len: int, strategy: str, L: int):
+            t0 = time.perf_counter()
+            prompts = [self.rng.randint(1, V, prompt_len).tolist() for _ in range(n_prompts)]
+            self.generate(prompts, sp_for(strategy, L))
+            timings[tag] = round(time.perf_counter() - t0, 2)
+
+        strategies = list(strategies)
+        if "mr" in strategies and cfg.jacobi_mr_auto_policy and cfg.jacobi_mr_single_arm:
+            # the auto-policy's single arm runs the Jacobi program and its
+            # re-entry the AR step: warm both
+            strategies += [x for x in ("jacobi", "ar") if x not in strategies]
+        for strategy in strategies:
+            for L in Ls if strategy != "ar" else [0]:
+                if strategy in ("ar", "jacobi", "jacobi_nongreedy"):
+                    for B in sorted(set(bbs), reverse=True):  # the largest graph first
+                        if strategy == "ar":
+                            self.programs.ar(B)
+                        else:
+                            self.programs.jacobi(B, L, strategy != "jacobi", -1, False)
+                ltag = f"_L{L}" if L else ""
+                for B in bbs:  # one decode program per batch bucket
+                    run(f"{strategy}{ltag}_B{B}", B, 32, strategy, L)
+                for T in tbs:  # one prefill shape per token bucket
+                    plen = min(T - L, cfg.max_model_len - L - 8)
+                    if plen <= 0:
+                        continue
+                    run(f"prefill_{strategy}{ltag}_T{T}", 1, plen, strategy, L)
+        # warmup traffic (kernel builds, captures) must not seed the MR
+        # auto-policy's measurements
+        self._mr_policies.clear()
+        return timings
 
     def generate(
         self,

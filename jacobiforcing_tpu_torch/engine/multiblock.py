@@ -42,6 +42,7 @@ from jacobiforcing_tpu_torch.ops.kv_cache import (
     KVCache,
     quantize_rows,
     storage_view,
+    with_trash,
     write_plan,
 )
 
@@ -499,21 +500,17 @@ def jacobi_chunk_multiblock(
             vw = torch.gather(v_new, 2, rows.expand(v_new.shape[0], B, N, *v_new.shape[3:]))
         else:
             kw, vw = k_new[:, :, :N], v_new[:, :, :N]
-        # out-of-range slots (uncommitted tokens, -1 pages) are dropped
-        src_rows, dest = write_plan(slots, kv.num_slots)
+        # out-of-range slots (uncommitted tokens, -1 pages) go to the trash rows
         Lyr, _, _, KH, D = kw.shape
-        kw = kw.reshape(Lyr, B * N, KH, D)[:, src_rows].transpose(1, 2)  # [Lyr, KH, R, D]
-        vw = vw.reshape(Lyr, B * N, KH, D)[:, src_rows].transpose(1, 2)
-        if kv.scaled:  # narrow KV: per-row quantization + scale scatter
-            kw, ksw = quantize_rows(kw, kv.k.dtype)
-            vw, vsw = quantize_rows(vw, kv.v.dtype)
-            kv.k_scale[:, :, dest] = ksw
-            kv.v_scale[:, :, dest] = vsw
-            storage_view(kv.k)[:, :, dest] = storage_view(kw)
-            storage_view(kv.v)[:, :, dest] = storage_view(vw)
-        else:
-            kv.k[:, :, dest] = kw.to(kv.k.dtype)
-            kv.v[:, :, dest] = vw.to(kv.v.dtype)
+        dest = write_plan(slots, kv.num_slots, KH)  # [KH * B * N]
+        kw = kw.reshape(Lyr, B * N, KH, D).transpose(1, 2).reshape(Lyr, KH * B * N, D)
+        vw = vw.reshape(Lyr, B * N, KH, D).transpose(1, 2).reshape(Lyr, KH * B * N, D)
+        for cache, scales, new in ((kv.k, kv.k_scale, kw), (kv.v, kv.v_scale, vw)):
+            if kv.scaled:  # narrow KV: per-row quantization + scale scatter
+                new, sc = quantize_rows(new, cache.dtype)
+                with_trash(scales, 0).index_copy_(1, dest, sc)
+            with_trash(storage_view(cache), 1).index_copy_(
+                1, dest, storage_view(new.to(cache.dtype)))
 
         cur_len2 = st.cur_len + acc_w
         generated2 = st.generated + acc_w

@@ -2,9 +2,11 @@
 
 PyTorch port of `jacobiforcing_tpu/engine/runner.py`.  The JAX version runs a
 whole Jacobi chunk (or on-policy block) as one jitted `lax.while_loop`; here
-the loop is a Python loop whose body runs on the device, with the per-row
-`active` mask kept on the device.  The loop condition is read back once per
-iteration.  The KV cache is updated in place.
+the loop is a Python loop of trips.  A Jacobi trip (`chunk_trip`: the per-row
+`active` mask, one iteration, the next trip's flag) reads nothing back and
+updates the fixed-shape `ChunkBuffers` in place, so a CUDA graph can capture
+it (`engine/graphs.py`); the host reads one flag per trip (`ChunkRun`).  The
+KV cache is updated in place.
 
 Greedy semantics kept from the JAX version (and the reference decoder):
   * draft[0] is the seed = last committed token, re-forwarded each iteration
@@ -26,7 +28,8 @@ order per iteration, so one seed gives one stream.
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -292,7 +295,7 @@ def _nongreedy_step(
     else:
         logp = torch.log(probs[rows, t_rej].clamp(min=1e-30))  # [B, V]
     z = logp + gumbel(logp.shape, generator, logp.device)
-    z[rows, proposed_rej] = float("-inf")
+    z.scatter_(1, proposed_rej[:, None], float("-inf"))  # a scalar fill: capturable
     bonus = torch.argmax(z, dim=-1).to(torch.int32)
 
     commit = torch.where((j == n_acc[:, None]) & rejected[:, None], bonus[:, None], spec)
@@ -308,33 +311,154 @@ def _nongreedy_step(
                                generator)
 
 
-def _run_chunk(step, state: JacobiState, iters, max_iters, len_limit, capacity, entry_len,
-               chunk_budget, chunk_iters) -> Dict[str, torch.Tensor]:
-    """Step every active row until none is left or the chunk's budget is
-    spent: `chunk_budget` committed tokens per row, or with chunk_iters > 0 a
-    fixed number of loop trips in which every unfinished row takes part."""
-    L = state.draft.shape[1]
+@dataclass
+class ChunkBuffers:
+    """The fixed-shape tensors of one chunk's trips: the loop state, which
+    every trip updates in place, and the chunk's inputs, loaded once per
+    chunk.  One set serves every chunk of a (B, L) program, so a CUDA graph
+    captured over it replays with whatever a chunk loads."""
+
+    tokens: torch.Tensor  # [B, cap] committed tokens
+    cur_len: torch.Tensor  # [B] committed length
+    draft: torch.Tensor  # [B, L]; draft[:, 0] = seed
+    eos: torch.Tensor  # [B] bool
+    generated: torch.Tensor  # [B] tokens committed during this chunk
+    iters: torch.Tensor  # [B] Jacobi iterations consumed (lifetime of request)
+    cur_len0: torch.Tensor  # [B] committed length at chunk entry
+    iters0: torch.Tensor  # [B] iterations at chunk entry (the chunk_iters bound)
+    block_tables: torch.Tensor  # [B, P]
+    capacity: torch.Tensor  # [B] = allocated pages * page_size
+    len_limit: torch.Tensor  # [B] absolute token-count limit
+    max_iters: torch.Tensor  # [B] lifetime iteration budgets
+    temperature: torch.Tensor  # [B] float32 (non-greedy only)
+    top_p: torch.Tensor  # [B] float32 (non-greedy with top-p only)
+    eos_id: torch.Tensor  # [] int32; -1 = no EOS
+    flag: torch.Tensor  # [] bool: the next trip has an active row
+
+    @classmethod
+    def alloc(cls, B: int, L: int, cap: int, P: int, device) -> "ChunkBuffers":
+        """Inert buffers: every row finished, every page -1."""
+        def i32(*shape, fill=0):
+            return torch.full(shape, fill, dtype=torch.int32, device=device)
+
+        def f32():
+            return torch.ones((B,), dtype=torch.float32, device=device)
+
+        return cls(
+            tokens=i32(B, cap), cur_len=i32(B, fill=1), draft=i32(B, L),
+            eos=torch.ones((B,), dtype=torch.bool, device=device), generated=i32(B),
+            iters=i32(B), cur_len0=i32(B, fill=1), iters0=i32(B),
+            block_tables=i32(B, P, fill=-1), capacity=i32(B), len_limit=i32(B),
+            max_iters=i32(B), temperature=f32(), top_p=f32(), eos_id=i32(fill=-1),
+            flag=torch.zeros((), dtype=torch.bool, device=device),
+        )
+
+    def load(self, **values) -> None:
+        """Copy tensors (from any device) or fill scalars into the named
+        buffers; the buffers keep their addresses."""
+        for name, v in values.items():
+            dst = getattr(self, name)
+            if isinstance(v, torch.Tensor):
+                dst.copy_(v)
+            else:
+                dst.fill_(v)
+
+
+_LOOP = ("tokens", "cur_len", "draft", "eos", "generated", "iters")
+
+
+def _loop_state(buf: ChunkBuffers, kv: Optional[KVCache]) -> JacobiState:
+    return JacobiState(kv, *(getattr(buf, k) for k in _LOOP))
+
+
+def trip_active(buf: ChunkBuffers, chunk_budget: int, chunk_iters: int) -> torch.Tensor:
+    """[B] rows that take part in the next trip: `chunk_budget` committed
+    tokens per row bound a chunk, or with chunk_iters > 0 a number of trips,
+    folded into the mask (a row past it is inert)."""
     budget = None if chunk_iters > 0 else chunk_budget
-    while True:
-        active = _jacobi_cond(budget, max_iters, state, len_limit, capacity)
-        go = active.any()
-        if chunk_iters > 0:
-            go = go & ((state.iters - iters).max() < chunk_iters)
-        if not bool(go):  # the one device-to-host read per iteration
-            break
-        state = step(state, active)
-    window, win_start = _commit_window(entry_len, state.tokens, L, chunk_budget, chunk_iters)
-    return {
-        "kv": state.kv,
-        "tokens": state.tokens,
-        "cur_len": state.cur_len,
-        "draft": state.draft,
-        "eos": state.eos,
-        "generated": state.generated,
-        "iters": state.iters,
-        "new_tokens": window,
-        "win_start": win_start,
-    }
+    active = _jacobi_cond(budget, buf.max_iters, _loop_state(buf, None), buf.len_limit,
+                          buf.capacity)
+    if chunk_iters > 0:
+        # a row stops for good once inactive, so a row active now has taken
+        # part in every trip so far: its count is the chunk's trip count
+        active = active & ((buf.iters - buf.iters0) < chunk_iters)
+    return active
+
+
+def chunk_trip(step, kv: KVCache, buf: ChunkBuffers, chunk_budget: int,
+               chunk_iters: int) -> None:
+    """One trip: the active mask, one iteration of `step` over every row,
+    and the next trip's flag.  Fixed shapes, in place, nothing read back."""
+    active = trip_active(buf, chunk_budget, chunk_iters)
+    new = step(_loop_state(buf, kv), active)
+    for name in _LOOP:
+        getattr(buf, name).copy_(getattr(new, name))
+    buf.flag.copy_(trip_active(buf, chunk_budget, chunk_iters).any())
+
+
+def greedy_step(params, cfg, rope, buf: ChunkBuffers, generator):
+    """The greedy iteration over `buf`'s chunk inputs, for `chunk_trip`."""
+    def step(st, active):
+        return _jacobi_step(params, cfg, rope, st, active, buf.block_tables, generator,
+                            buf.eos_id)
+    return step
+
+
+def nongreedy_step(params, cfg, rope, buf: ChunkBuffers, generator, top_k: int,
+                   use_top_p: bool):
+    """The rejection-sampling iteration over `buf`'s chunk inputs."""
+    def step(st, active):
+        return _nongreedy_step(params, cfg, rope, st, active, buf.block_tables, generator,
+                               buf.eos_id, buf.temperature, buf.top_p, top_k, use_top_p)
+    return step
+
+
+class ChunkRun:
+    """One chunk's trips, driven from the host with one flag read per trip.
+    `start` reads whether any row is active and launches the first trip,
+    then returns, so the caller can work on the host while it runs;
+    `finish` runs the rest.  No trip runs with every row inactive."""
+
+    def __init__(self, trip: Callable[[], None], buf: ChunkBuffers, chunk_budget: int,
+                 chunk_iters: int):
+        self.trip, self.buf = trip, buf
+        self.chunk_budget, self.chunk_iters = chunk_budget, chunk_iters
+        self.go = False
+
+    def start(self) -> "ChunkRun":
+        self.go = bool(trip_active(self.buf, self.chunk_budget, self.chunk_iters).any())
+        if self.go:
+            self.trip()
+        return self
+
+    def finish(self) -> Dict[str, torch.Tensor]:
+        """Run the remaining trips; returns the chunk's outputs, copied out
+        of the buffers (which the program's next chunk reuses)."""
+        while self.go:
+            self.go = bool(self.buf.flag)  # the one device-to-host read per trip
+            if self.go:
+                self.trip()
+        buf = self.buf
+        window, win_start = _commit_window(buf.cur_len0, buf.tokens, buf.draft.shape[1],
+                                           self.chunk_budget, self.chunk_iters)
+        out = {k: getattr(buf, k).clone() for k in _LOOP}
+        out.update(new_tokens=window, win_start=win_start)
+        return out
+
+
+def _chunk(step_of, kv, tokens, cur_len, draft, eos, iters, block_tables, capacity, len_limit,
+           max_iters, eos_token_id, chunk_budget, chunk_iters, **extra) -> Dict[str, Any]:
+    """One chunk through fresh buffers and eager trips (the functional API)."""
+    B, L = draft.shape
+    buf = ChunkBuffers.alloc(B, L, tokens.shape[1], block_tables.shape[1], draft.device)
+    buf.load(tokens=tokens, cur_len=cur_len, draft=draft, eos=eos, iters=iters,
+             cur_len0=cur_len, iters0=iters, generated=0, block_tables=block_tables,
+             capacity=capacity, len_limit=len_limit, max_iters=max_iters,
+             eos_id=eos_token_id, **extra)
+    step = step_of(buf)
+    out = ChunkRun(lambda: chunk_trip(step, kv, buf, chunk_budget, chunk_iters), buf,
+                   chunk_budget, chunk_iters).start().finish()
+    return {"kv": kv, **out}
 
 
 @torch.no_grad()
@@ -364,17 +488,9 @@ def jacobi_chunk_greedy(
     chunk_iters > 0 by a fixed number of loop trips in which every
     unfinished row takes part.
     """
-    B = draft.shape[0]
-    state = JacobiState(
-        kv, tokens, cur_len, draft, eos,
-        torch.zeros((B,), dtype=torch.int32, device=draft.device), iters,
-    )
-
-    def step(st, active):
-        return _jacobi_step(params, cfg, rope, st, active, block_tables, generator, eos_token_id)
-
-    return _run_chunk(step, state, iters, max_iters, len_limit, capacity, cur_len,
-                      chunk_budget, chunk_iters)
+    return _chunk(lambda buf: greedy_step(params, cfg, rope, buf, generator), kv, tokens,
+                  cur_len, draft, eos, iters, block_tables, capacity, len_limit, max_iters,
+                  eos_token_id, chunk_budget, chunk_iters)
 
 
 @torch.no_grad()
@@ -412,18 +528,10 @@ def jacobi_chunk_nongreedy(
     the full distribution at one position per row); otherwise `logits_at` +
     `target_probs` over [B, L-1, V].  Chunking as in `jacobi_chunk_greedy`.
     """
-    B = draft.shape[0]
-    state = JacobiState(
-        kv, tokens, cur_len, draft, eos,
-        torch.zeros((B,), dtype=torch.int32, device=draft.device), iters,
-    )
-
-    def step(st, active):
-        return _nongreedy_step(params, cfg, rope, st, active, block_tables, generator,
-                               eos_token_id, temperature, top_p, top_k, use_top_p)
-
-    return _run_chunk(step, state, iters, max_iters, len_limit, capacity, cur_len,
-                      chunk_budget, chunk_iters)
+    return _chunk(
+        lambda buf: nongreedy_step(params, cfg, rope, buf, generator, top_k, use_top_p), kv,
+        tokens, cur_len, draft, eos, iters, block_tables, capacity, len_limit, max_iters,
+        eos_token_id, chunk_budget, chunk_iters, temperature=temperature, top_p=top_p)
 
 
 # ---------------------------------------------------------------------------
@@ -507,7 +615,7 @@ def _onpolicy_step(
         z = logp + gumbel(logp.shape, generator, dev)
         if accept_threshold <= 0.0:
             # the rejection-sampling residual excludes the rejected proposal
-            z[rows, proposed[rows, t_rej].long()] = float("-inf")
+            z.scatter_(1, proposed[rows, t_rej].long()[:, None], float("-inf"))
         bonus = torch.argmax(z, dim=-1).to(torch.int32)
         if accept_threshold > 0.0:
             # zero acceptance samples ONE token from the full p; no bonus otherwise

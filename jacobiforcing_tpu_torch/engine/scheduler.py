@@ -18,7 +18,7 @@ Decode batches are grouped by (strategy, jacobi block_len L) by the engine.
 from __future__ import annotations
 
 from collections import deque
-from typing import List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 from jacobiforcing_tpu_torch.config import Config
 from jacobiforcing_tpu_torch.engine.block_manager import BlockManager
@@ -32,6 +32,9 @@ class Scheduler:
         self.waiting: deque[Sequence] = deque()
         self.running: deque[Sequence] = deque()
         self.num_preemptions = 0
+        # called with a sequence about to be preempted (the engine lands its
+        # pending device work there, so the requeued mirror is current)
+        self.on_preempt: Optional[Callable[[Sequence], None]] = None
 
     def add(self, seq: Sequence) -> None:
         self.waiting.append(seq)
@@ -102,6 +105,8 @@ class Scheduler:
         return None
 
     def preempt(self, seq: Sequence) -> None:
+        if self.on_preempt is not None:
+            self.on_preempt(seq)
         self.num_preemptions += 1
         self.running.remove(seq)
         self.block_manager.deallocate(seq)

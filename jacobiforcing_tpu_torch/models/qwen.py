@@ -309,7 +309,7 @@ def forward(
     if write_mask is not None:
         slots = torch.where(write_mask, slots, num_slots)
     slots = torch.where(page_idx < 0, num_slots, slots)
-    plan = write_plan(slots, num_slots)  # one plan for every layer
+    plan = write_plan(slots, num_slots, cfg.num_kv_heads)  # one plan for every layer
 
     lp = params["layers"]
     scale = 1.0 / math.sqrt(cfg.head_dim)

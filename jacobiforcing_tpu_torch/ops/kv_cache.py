@@ -13,11 +13,19 @@ row is normalised to the type's range (its amax maps to 448 or 127), so
 magnitudes beyond the e4m3 maximum do not saturate.
 
 Unlike the JAX cache, which is immutable and returned anew by every write,
-`write_kv` and `write_kv_scaled` update the cache tensors in place.
+`write_kv` and `write_kv_scaled` update the cache tensors in place, with a
+scatter of fixed shape: a token that is not written (its slot out of range,
+masked, or on a -1 page) goes to a trash row.  `alloc_kv_cache` lays each
+layer out as its `num_kv_heads * num_slots` slot rows followed by that trash
+row, so a layer's `[num_kv_heads, num_slots, head_dim]` view stays contiguous
+(what the kernels take, with the pool's own `num_slots`), no block table can
+name the trash row, and nothing reads it.  A fixed-shape write needs no
+device-to-host read, so a forward can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -52,11 +60,12 @@ def storage_view(t: torch.Tensor) -> torch.Tensor:
 
 @dataclass
 class KVCache:
-    """Paged KV storage for all layers.
+    """Paged KV storage for all layers, made by `alloc_kv_cache`.
 
     k, v: [num_layers, num_kv_heads, num_pages * page_size, head_dim]
     k_scale, v_scale: [num_layers, num_kv_heads, num_pages * page_size] float32
         per-row dequant scales (None unless the storage type is narrow).
+    Each layer's rows are followed in memory by its trash row (`with_trash`).
     """
 
     k: torch.Tensor
@@ -78,6 +87,15 @@ class KVCache:
         return self.k_scale is not None
 
 
+def _pool(num_layers, num_kv_heads, num_slots, row, fill, dtype, device) -> torch.Tensor:
+    """[num_layers, num_kv_heads, num_slots, *row] over a [num_layers,
+    num_kv_heads * num_slots + 1, *row] buffer: each layer's trash row sits
+    right after its slots."""
+    buf = torch.full((num_layers, num_kv_heads * num_slots + 1) + row, fill, dtype=dtype,
+                     device=device)
+    return buf[:, : num_kv_heads * num_slots].unflatten(1, (num_kv_heads, num_slots))
+
+
 def alloc_kv_cache(
     num_layers: int,
     num_pages: int,
@@ -87,16 +105,39 @@ def alloc_kv_cache(
     dtype=torch.bfloat16,
     device="cpu",
 ) -> KVCache:
-    shape = (num_layers, num_kv_heads, num_pages * page_size, head_dim)
+    dims = (num_layers, num_kv_heads, num_pages * page_size)
     k_scale = v_scale = None
     if needs_row_scales(dtype):
-        k_scale = torch.ones(shape[:3], dtype=torch.float32, device=device)
-        v_scale = torch.ones(shape[:3], dtype=torch.float32, device=device)
+        k_scale = _pool(*dims, (), 1.0, torch.float32, device)
+        v_scale = _pool(*dims, (), 1.0, torch.float32, device)
     return KVCache(
-        torch.zeros(shape, dtype=dtype, device=device),
-        torch.zeros(shape, dtype=dtype, device=device),
+        _pool(*dims, (head_dim,), 0, dtype, device),
+        _pool(*dims, (head_dim,), 0, dtype, device),
         page_size, k_scale, v_scale,
     )
+
+
+def with_trash(t: torch.Tensor, row_dims: int) -> torch.Tensor:
+    """The rows of a cache tensor laid out by `alloc_kv_cache` together with
+    each layer's trash row.
+
+    `t` is one layer, [num_kv_heads, num_slots, *row], or the pool, [layers,
+    num_kv_heads, num_slots, *row], with `row_dims` = len(row) (1 for K/V
+    rows, 0 for scales).  Returns [num_kv_heads * num_slots + 1, *row] (or
+    [layers, ...]): slot s of head h is row h * num_slots + s, the trash row
+    is the last.  Raises ValueError for a tensor without trash rows."""
+    lead = t.dim() - 2 - row_dims
+    kh, slots = t.shape[lead], t.shape[lead + 1]
+    row = math.prod(t.shape[lead + 2:])
+    per_layer = (kh * slots + 1) * row
+    strides = t.stride()
+    rows_ok = strides[lead:] == tuple(math.prod(t.shape[i + 1:]) for i in range(lead, t.dim()))
+    layers_ok = lead == 0 or t.shape[0] == 1 or strides[0] == per_layer
+    if not (lead in (0, 1) and rows_ok and layers_ok and t.storage_offset() % per_layer == 0
+            and (t.untyped_storage().nbytes() // t.element_size()) % per_layer == 0):
+        raise ValueError("the cache has no trash rows: allocate it with alloc_kv_cache")
+    shape = t.shape[:lead] + (kh * slots + 1,) + t.shape[lead + 2:]
+    return t.as_strided(shape, (per_layer,) * lead + strides[lead + 1:])
 
 
 def quantize_rows(x: torch.Tensor, cache_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -123,27 +164,32 @@ def dequantize_rows(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) ->
     return q.to(dtype) * scale[..., None].to(dtype)
 
 
-def write_plan(slots: torch.Tensor, num_slots: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Which rows of a [B, T] slot map are written, and where.
+def write_plan(slots: torch.Tensor, num_slots: int, num_kv_heads: int) -> torch.Tensor:
+    """Where each (KV head, token) of a [B, T] slot map is written: [KH * B * T]
+    row indices into `with_trash` rows, head-major.  A token whose slot lies
+    outside [0, num_slots) goes to the trash row, never to a real slot: the
+    JAX scatter's `mode="drop"` in a shape that does not depend on the data.
+    The plan is the same for every layer, so a forward computes it once."""
+    flat = slots.reshape(-1).long()
+    heads = torch.arange(num_kv_heads, device=flat.device)[:, None] * num_slots
+    dest = torch.where((flat >= 0) & (flat < num_slots), heads + flat[None, :],
+                       num_kv_heads * num_slots)
+    return dest.reshape(-1)
 
-    Returns (rows, dest): indices into the flattened B*T token axis whose slot
-    lies in [0, num_slots), and those slots.  Every other token is skipped,
-    never clamped onto a real slot: this is the JAX scatter's `mode="drop"`
-    with an explicit mask.  The plan is the same for every layer, so a
-    forward computes it once (one device-to-host sync) and reuses it.
-    """
-    flat = slots.reshape(-1)
-    rows = torch.nonzero((flat >= 0) & (flat < num_slots)).squeeze(1)
-    return rows, flat[rows].long()
+
+def _head_major(x: torch.Tensor, kh: int) -> torch.Tensor:
+    """[B, T, KH, *row] -> [KH * B * T, *row], the order of `write_plan`."""
+    row = tuple(x.shape[3:])
+    return x.reshape((-1, kh) + row).transpose(0, 1).reshape((-1,) + row)
 
 
 def write_kv(
-    k_cache: torch.Tensor,  # [KH, num_slots, D] (single layer)
+    k_cache: torch.Tensor,  # [KH, num_slots, D] (single layer, from alloc_kv_cache)
     v_cache: torch.Tensor,
     k_new: torch.Tensor,  # [B, T, KH, D]
     v_new: torch.Tensor,
     slots: torch.Tensor,  # [B, T] flat slots; outside [0, num_slots) = skip
-    plan: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    plan: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scatter new K/V rows into the flat paged cache of one layer, IN PLACE.
 
@@ -151,12 +197,10 @@ def write_kv(
     out of range are skipped (see `write_plan`); pass `plan` to reuse one
     computed for another layer of the same forward.
     """
-    rows, dest = plan if plan is not None else write_plan(slots, k_cache.shape[1])
-    kh, d = k_new.shape[-2], k_new.shape[-1]
-    k_rows = k_new.reshape(-1, kh, d)[rows].transpose(0, 1).to(k_cache.dtype)
-    v_rows = v_new.reshape(-1, kh, d)[rows].transpose(0, 1).to(v_cache.dtype)
-    k_cache[:, dest] = k_rows
-    v_cache[:, dest] = v_rows
+    kh = k_cache.shape[0]
+    dest = plan if plan is not None else write_plan(slots, k_cache.shape[1], kh)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        with_trash(cache, 1).index_copy_(0, dest, _head_major(new, kh).to(cache.dtype))
     return k_cache, v_cache
 
 
@@ -168,16 +212,16 @@ def write_kv_scaled(
     k_new: torch.Tensor,  # [B, T, KH, D] compute dtype
     v_new: torch.Tensor,
     slots: torch.Tensor,  # [B, T]
-    plan: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    plan: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """`write_kv` with per-row amax quantization and a scatter of the scales,
     IN PLACE, with the same drop semantics."""
-    rows, dest = plan if plan is not None else write_plan(slots, k_cache.shape[1])
-    kh, d = k_new.shape[-2], k_new.shape[-1]
+    kh = k_cache.shape[0]
+    dest = plan if plan is not None else write_plan(slots, k_cache.shape[1], kh)
     for cache, scales, new in ((k_cache, ks_cache, k_new), (v_cache, vs_cache, v_new)):
-        q, s = quantize_rows(new.reshape(-1, kh, d)[rows], cache.dtype)  # [R, KH, D], [R, KH]
-        storage_view(cache)[:, dest] = storage_view(q).transpose(0, 1)
-        scales[:, dest] = s.T
+        q, s = quantize_rows(_head_major(new, kh), cache.dtype)  # [KH*B*T, D], [KH*B*T]
+        with_trash(storage_view(cache), 1).index_copy_(0, dest, storage_view(q))
+        with_trash(scales, 0).index_copy_(0, dest, s)
     return k_cache, v_cache, ks_cache, vs_cache
 
 

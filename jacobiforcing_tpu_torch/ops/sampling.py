@@ -84,7 +84,7 @@ def target_probs(
         sorted_p = torch.gather(probs, -1, order)
         cdf = torch.cumsum(sorted_p, dim=-1)
         keep_sorted = cdf <= top_p[..., None]
-        keep_sorted[..., 0] = True
+        keep_sorted[..., 0].fill_(True)  # a scalar fill: capturable in a CUDA graph
         keep = torch.empty_like(keep_sorted).scatter_(-1, order, keep_sorted)  # unsort
         probs = torch.where(keep, probs, 0.0)
         probs = probs / probs.sum(-1, keepdim=True).clamp(min=1e-12)

@@ -130,7 +130,8 @@ def test_gather_pages_matches_jax():
 
 def test_write_kv_drop_semantics():
     """Slots >= num_slots (masked tokens, -1 pages) are skipped, never
-    clamped onto a real slot; the port writes in place."""
+    clamped onto a real slot; the port writes in place (the skipped tokens
+    land in the layer's trash row, which only `alloc_kv_cache` lays out)."""
     r = np.random.RandomState(3)
     KH, D, slots = 2, 8, 4 * PAGE
     k0 = r.randn(KH, slots, D)
@@ -140,7 +141,10 @@ def test_write_kv_drop_semantics():
     dest = np.asarray([[3, 17, slots, 62, slots + 7], [slots, 0, 1, slots, 40]], np.int32)
     jk, jv = jkv.write_kv(jnp.asarray(k0), jnp.asarray(v0), jnp.asarray(k_new),
                           jnp.asarray(v_new), jnp.asarray(dest))
-    tk, tv = torch.from_numpy(k0.copy()), torch.from_numpy(v0.copy())
+    pool = tkv.alloc_kv_cache(1, 4, PAGE, KH, D, torch.float64)
+    tk, tv = pool.k[0], pool.v[0]
+    tk.copy_(torch.from_numpy(k0))
+    tv.copy_(torch.from_numpy(v0))
     ok, ov = tkv.write_kv(tk, tv, torch.from_numpy(k_new), torch.from_numpy(v_new),
                           torch.from_numpy(dest))
     assert ok is tk and ov is tv

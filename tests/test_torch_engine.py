@@ -78,9 +78,7 @@ def test_bench_generate_demo_anchor(port_llm, tmp_path):
     assert 4.55 <= agg["aggregate_tokens_per_forward"] <= 4.85
 
 
-@pytest.mark.parametrize("kw", [
-    dict(tensor_parallel_size=2), dict(jacobi_async_host=True), dict(data_parallel_size=2),
-])
+@pytest.mark.parametrize("kw", [dict(tensor_parallel_size=2), dict(data_parallel_size=2)])
 def test_unported_config_options_raise(kw):
     with pytest.raises(NotImplementedError):
         Config(**kw)

@@ -47,6 +47,14 @@ def test_the_sampling_modules_are_covered():
         assert f"jacobiforcing_tpu_torch/{mod}.py" in names
 
 
+def test_the_host_path_modules_are_covered():
+    """The serving host path's modules (per-bucket graphs, the profiler,
+    the engine benchmark) are among the files checked above."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ("engine/graphs", "utils/profiling", "apps/bench_engine", "engine/llm_engine"):
+        assert f"jacobiforcing_tpu_torch/{mod}.py" in names
+
+
 def test_port_process_never_loads_jax():
     code = """
 import sys, torch
@@ -62,6 +70,9 @@ h, _ = forward(params, cfg, ids, pos, kv, torch.tensor([[0, 1]]), torch.tensor([
                rope_table(cfg))
 assert h.shape == (1, 4, cfg.hidden_size) and bool(torch.isfinite(h).all())
 from jacobiforcing_tpu_torch.ops import int4_matmul, int4_matmul_cuda, quant
+from jacobiforcing_tpu_torch.apps import bench_engine
+from jacobiforcing_tpu_torch.engine import graphs
+from jacobiforcing_tpu_torch.utils import profiling
 qllm = LLM(device="cpu", model_cfg=cfg, params=quant.init_quantized_params(cfg, 0, "cpu"),
            num_kv_pages=8, kvcache_page_size=16, max_model_len=64, quantization="w8a8",
            kv_cache_dtype="fp8")
