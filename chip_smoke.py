@@ -37,7 +37,10 @@ result line):
      JAX test's shape, ragged M and K and the four Qwen2.5-7B linear shapes
      at M = 4 / 256 / 1536 (tolerances in `check_int4`), its times beside the
      bound and a bf16 GEMM on the pre-dequantized weight, and its path: one
-     decoder layer's seven linear layers through the dispatcher.
+     decoder layer's seven linear layers through the dispatcher.  Kernels 1
+     and 2 at the local heads of tensor parallelism (Qwen2.5-7B heads, KH 2
+     at TP 2 and KH 1 at TP 4), f32 and bf16, against their plain versions,
+     and their times at B 4 (`[tp-kernel-time]`).
   3. `train_kernel`: a `[kernel-design]` line of the training kernels (bf16
      forward, dQ and dK/dV on tensor cores, every f32 kernel on the fp32
      tile; registers, local bytes, shared memory; it fails on local memory in
@@ -97,7 +100,23 @@ result line):
      under `ar`, `jacobi` and `mr`, then weight-only int8 with an int8 KV
      cache under `jacobi`; launch counts as in `full`, tok/s, iterations/s,
      peak memory, and the device-time split of a profiled run.
-  9. `train`: the consistency trainer through `train(TrainerArgs(...))` with
+  9. `tp`: tensor-parallel serving at TP 2 on this one card: two ranks
+     spawned as processes of this script (`tp-rank`), joined over gloo and
+     run eagerly (NCCL takes one rank per card, and a gloo group cannot be
+     captured in a CUDA graph).  The demo checkpoint in f32 (1 KV head per
+     rank): `ar` == `jacobi` == `mr` (policy off) on the 64 prompts, tokens
+     and EOS beside 2033 / 64 and against TP 1 served here, MR tiers beside
+     TP 1's; W8A8: `ar` == `jacobi`, tokens beside 2029.  Qwen2.5-7B widths,
+     random bf16 weights drawn whole on each rank and handed to `LLM`, which
+     cuts the rank's share (2 KV heads, 14 query heads per rank); the
+     shares' dense forward within `TP_SHARD_TOL` of the full weights'; 4
+     requests of 256-1024 prompt tokens, 32 new tokens: `ar`, `jacobi`
+     (block 64), `mr` (N 64, K 2, policy off), tokens against TP 1 and AR
+     against Jacobi as counts, iterations/s over gloo.
+     Every path launches kernel 1 (and `mr` kernel 2) on every rank and no
+     plain attention; the ranks' streams are identical.  With two cards or
+     more the demo's `ar` and `jacobi` also run over NCCL with CUDA graphs.
+ 10. `train`: the consistency trainer through `train(TrainerArgs(...))` with
      `attn_impl="splash"`.  (a) the demo checkpoint's widths in f32 from random
      weights: rows from `synthesize_trajectories_masking` ->
      `pack_trajectories` -> `JacobianDataset`; the first step's losses and
@@ -153,6 +172,9 @@ KERNELS = {
     "train_attention_fwd": _TRAIN,
     "train_attention_dkdv": _TRAIN,
     "train_attention_dq": _TRAIN,
+    # tensor parallelism at TP 2: the same kernels on each rank's 2 KV heads
+    "paged_attention_kh2": _PAGED,
+    "spec_attention_kh2": _SPEC,
 }
 MR = "jacobi_multiblock_rejection_recycling"
 # the JAX package's demo run in f32 on the CPU (2023 on a TPU, whose default
@@ -768,6 +790,71 @@ def phase_spec_kernel(timing):
             raise AssertionError(f"spec kernel disagrees with the plain version at T={T}")
         timing[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
                             max_abs_err=err)
+
+
+def phase_tp_kernel(timing):
+    """Kernels 1 and 2 at the launch shapes of tensor parallelism: Qwen2.5-7B
+    heads (D 128, G 7) with the KV heads of one rank at TP 2 (KH 2) and TP 4
+    (KH 1), f32 and bf16, against their plain versions under `check`; then
+    their times at B 4 (the paged kernel at L 64, the speculative one at T
+    64 / 128 / 384) beside the bound and SDPA."""
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    tiers = {"T64": (1, 0), "T128": (2, 0), "T384": (2, 4)}
+    n = 0
+    for KH in (2, 1):
+        for dname, dtype in dtypes.items():
+            for B, L, ctx, prefill in [(1, 1, 4096, False), (4, 64, 4096, False),
+                                       (8, 32, 2048, False), (1, 1024, 1024, True)]:
+                c = make_case(B, L, KH, 7, 128, 256, ctx, dtype, seed=7000 + n,
+                              n_pad=(1 if B >= 4 else 0), full=prefill)
+                n += 1
+                out = run_kernel(c)
+                finite = bool(torch.isfinite(out).all())
+                err, worst, ok = check(out, run_plain(c), c["n_real"])
+                tag = f"KH={KH} {dname} B={B} L={L} ctx<={ctx}{' prefill' if prefill else ''}"
+                log(f"[tp-kernel] paged {tag}: max_abs_err={err:.3e} max err/tol={worst:.3f} "
+                    f"finite={finite} {'ok' if ok and finite else 'FAIL'}")
+                if not (ok and finite):
+                    raise AssertionError(f"kernel disagrees with the plain version: {tag}")
+            for B in (1, 4):
+                for tname, (K, C) in tiers.items():
+                    c = make_spec_case(B, 64, K, C, KH, 7, 128, 256, 2048, dtype, seed=7000 + n,
+                                       n_pad=(1 if B >= 4 else 0))
+                    n += 1
+                    out = run_spec_kernel(c)
+                    finite = bool(torch.isfinite(out).all())
+                    keep = spec_rows_to_check(c)
+                    err, worst, ok = check(out[keep], run_spec_plain(c)[keep])
+                    tag = f"KH={KH} {dname} B={B} N=64 T={tname} tree mask ctx<=2048"
+                    log(f"[tp-kernel] speculative {tag}: max_abs_err={err:.3e} "
+                        f"max err/tol={worst:.3f} finite={finite} "
+                        f"{'ok' if ok and finite else 'FAIL'}")
+                    if not (ok and finite):
+                        raise AssertionError(f"spec kernel disagrees with the plain version: {tag}")
+    for KH in (2, 1):
+        c = make_case(4, 64, KH, 7, 128, 256, 1024, torch.bfloat16, seed=7500, full=True)
+        cases = {f"decode_kh{KH}": (c, run_kernel, run_plain, sdpa_ms, bound, None)}
+        for tname, (K, C) in tiers.items():
+            cs = make_spec_case(4, 64, K, C, KH, 7, 128, 256, 1024, torch.bfloat16, seed=7600,
+                                full=True)
+            cases[f"{tname}_kh{KH}"] = (cs, run_spec_kernel, run_spec_plain, spec_sdpa_ms,
+                                        spec_bound, spec_rows_to_check(cs))
+        for name, (c, kern, plain_fn, lib_fn, bound_fn, keep) in cases.items():
+            ms = time_ms(lambda: kern(c))
+            plain = time_ms(lambda: plain_fn(c), iters=5)
+            lib = lib_fn(c)
+            bms, by = bound_fn(c)
+            out, ref = kern(c), plain_fn(c)
+            err, worst, ok = check(out, ref, c["n_real"]) if keep is None else \
+                check(out[keep], ref[keep])
+            log(f"[tp-kernel-time] {name} B=4 {'L=64 ' if keep is None else ''}ctx=1024 bf16, "
+                f"D=128 KH={KH} G=7: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
+                f"bound {bms:.5f} ms ({by}), {bms / ms * 100:.2f}% of bound, max_abs_err "
+                f"{err:.3e} max err/tol {worst:.3f} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"kernel disagrees with the plain version at {name}")
+            timing[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                                bound_by=by, max_abs_err=err)
 
 
 # ---------------------------------------------------------------------------
@@ -2483,6 +2570,336 @@ def phase_train(counter, launches_out, params=None):
     phase_train_full(counter, launches_out, params)
 
 
+# ---------------------------------------------------------------------------
+# Phase `tp`: tensor-parallel serving, two ranks on one card
+# ---------------------------------------------------------------------------
+
+# the JAX package's W8A8 demo run in f32 on the CPU (DEMO_QUANT_ANCHORS)
+TP_W8A8_TOKENS = 2029
+
+
+def demo_prompts():
+    with open(os.path.join(DEMO, "heldout_prompts.jsonl")) as f:
+        return [json.loads(line)["prompt_ids"] for line in f]
+
+
+def demo_sps(meta, names):
+    """The demo's greedy requests (N 32, 96 new tokens; MR K 2, pool 4)."""
+    from jacobiforcing_tpu_torch.config import SamplingParams
+
+    kw = dict(temperature=0.0, max_tokens=int(meta["max_tokens"]),
+              jacobi_block_len=int(meta["block_len"]), jacobi_n_gram_pool_size=4,
+              jacobi_max_iterations=1 << 20)
+    sps = {"ar": SamplingParams(**kw),
+           "jacobi": SamplingParams(decode_strategy="jacobi", **kw),
+           "mr": SamplingParams(decode_strategy=MR, jacobi_max_blocks=2, **kw)}
+    return {n: sps[n] for n in names}
+
+
+def tp_full_sps():
+    """Qwen2.5-7B widths: 32 new tokens; Jacobi block 64; MR N 64, K 2."""
+    from jacobiforcing_tpu_torch.config import SamplingParams
+
+    kw = dict(temperature=0.0, max_tokens=32, jacobi_max_iterations=1 << 20)
+    return {"ar": SamplingParams(**kw),
+            "jacobi": SamplingParams(decode_strategy="jacobi", jacobi_block_len=64, **kw),
+            "mr": SamplingParams(decode_strategy=MR, jacobi_block_len=64, jacobi_max_blocks=2,
+                                 jacobi_n_gram_pool_size=4, **kw)}
+
+
+def tp_serve(llm, prompts, sps, counter):
+    """Each request set of `sps` once, all prompts in one call, the kernel
+    counts zeroed just before and read just after: streams, launches, plain
+    attention calls on CUDA, wall seconds, batched forwards (AR steps) and MR
+    tier counts by path."""
+    out = {}
+    for name, sp in sps.items():
+        stats0 = dict(llm.stats)
+        zero_counts(counter)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams = [o["token_ids"] for o in llm.generate(prompts, sp)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        delta = {k: llm.stats.get(k, 0) - stats0.get(k, 0) for k in llm.stats}
+        out[name] = dict(streams=streams, launches=read_counts(), plain=counter.n, wall=wall,
+                         forwards=delta["ar_steps"] if name == "ar" else delta["chunk_forwards"],
+                         tiers={k: delta.get(k, 0) for k in MR_STATS[:3]})
+    return out
+
+
+# the TP 2 dense forward on the engine's shards against one rank's on the
+# full weights (Qwen2.5-7B widths, bf16, one 64-token prompt): relative L2
+# error of the last hidden states and of the last row's logits.  The two add
+# the row-parallel partial products in another order, in bf16, over 28
+# layers: a few percent; a weight cut wrong leaves the two uncorrelated
+# (about 1.4)
+TP_SHARD_TOL = 0.25
+
+
+def tp_shard_check(full, engine, cfg):
+    """(hidden, logits) relative errors of `engine`'s TP forward on its
+    shards against one rank's on the `full` weights."""
+    from jacobiforcing_tpu_torch.models import qwen
+
+    ids = torch.tensor([full_width_prompts(cfg)[0][:64]], device=engine.device)
+    pos = torch.arange(64, device=engine.device)[None]
+    with torch.no_grad():
+        h1 = qwen.forward_dense(full, cfg, ids, pos, engine.rope)
+        h2 = qwen.forward_dense(engine.params, cfg, ids, pos, engine.rope, group=engine.group)
+        l1 = qwen.logits_at(full, cfg, h1[:, -1])
+        l2 = qwen.logits_at(engine.params, cfg, h2[:, -1], engine.group)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    return rel(h2, h1), rel(l2, l1)
+
+
+def tp_rank(rank, port, out_path, backend):
+    """One rank of the `tp` phase's 2-process world.  gloo: both ranks on
+    card 0, eagerly (NCCL takes one rank per card, and gloo refuses CUDA
+    graphs); nccl: card `rank`, with CUDA graphs.  The demo checkpoint in f32
+    (`ar`, `jacobi`, `mr` with the policy off; W8A8 `ar`, `jacobi`), then
+    Qwen2.5-7B widths in bf16 with random weights: every rank draws the same
+    full weights on its card and hands them to `LLM`, which cuts its share
+    (`parallel/sharding.shard_params`); the share's TP forward is held to
+    the full weights' (`tp_shard_check`) before the full copy is freed.
+    Writes what it served to `out_path`."""
+    import torch.distributed as dist
+
+    from jacobiforcing_tpu_torch.engine.llm import LLM
+    from jacobiforcing_tpu_torch.models.qwen import ModelConfig, init_params
+    from jacobiforcing_tpu_torch.parallel.mesh import make_mesh
+    from jacobiforcing_tpu_torch.parallel.multihost import initialize_multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    nccl = backend == "nccl"
+    initialize_multihost(f"localhost:{port}", 2, rank, backend=backend,
+                         local_rank=rank if nccl else 0)
+    mesh = make_mesh(tensor_parallel_size=2)
+    counter = PlainOnCudaCounter()
+    with open(os.path.join(DEMO, "tpf_demo.json")) as f:
+        meta = json.load(f)
+    res = {"device": torch.cuda.current_device()}
+    tp = dict(tensor_parallel_size=2, enforce_eager=not nccl, mesh=mesh)
+    llm = demo_llm(meta, jacobi_mr_auto_policy=False, **tp)
+    res["demo_kv_heads"] = int(llm.engine.kv.k.shape[1])
+    res["demo"] = tp_serve(llm, demo_prompts(), demo_sps(meta, ("ar", "jacobi", "mr")), counter)
+    res["graphs"] = llm.engine.programs.num_graphs
+    llm.exit()
+    llm = demo_llm(meta, quantization="w8a8", **tp)
+    res["w8a8"] = tp_serve(llm, demo_prompts(), demo_sps(meta, ("ar", "jacobi")), counter)
+    llm.exit()
+    cfg = ModelConfig()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    llm = LLM(device="cuda", model_cfg=cfg, params=full, num_kv_pages=64,
+              kvcache_page_size=256, eos=-1, jacobi_mr_auto_policy=False, **tp)
+    torch.cuda.synchronize()
+    res["init_s"] = time.perf_counter() - t0
+    params = llm.engine.params
+    res["shard_rel_err"] = tp_shard_check(full, llm.engine, cfg)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["weights_gib"] = sum(t.numel() * t.element_size() for v in params.values()
+                             for t in (v.values() if isinstance(v, dict) else [v])) / 2**30
+    res["full_kv_heads"] = int(llm.engine.kv.k.shape[1])
+    res["full_q_heads"] = int(params["layers"]["wq"].shape[-1] // cfg.head_dim)
+    torch.cuda.reset_peak_memory_stats()
+    res["full"] = tp_serve(llm, full_width_prompts(cfg), tp_full_sps(), counter)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    llm.exit()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_tp_ranks(backend, out_dir, timeout=600):
+    """Run `tp_rank` in two processes; a rank that fails fails the phase."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    paths = [os.path.join(out_dir, f"tp-{backend}-rank{r}.json") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "tp-rank", str(r),
+                               str(port), paths[r], backend], cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            log(f"[tp] {backend} rank {r} failed (rc {p.returncode}):\n{text[-4000:]}")
+            raise AssertionError(f"a {backend} rank failed")
+    ranks = []
+    for path in paths:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def attn(run):
+    """A run's launches of kernels 1 and 2."""
+    return {k: run["launches"][k] for k in ("paged_attention", "spec_attention")}
+
+
+def match_rate(a, b):
+    """Tokens equal position by position over the shorter of two streams."""
+    same = sum(x == y for s, t in zip(a, b) for x, y in zip(s, t))
+    return same, sum(min(len(s), len(t)) for s, t in zip(a, b))
+
+
+def report_tp(tag, ranks, demo1, full1, eos, faults, rate_note):
+    """The `tp` phase's lines and gates for one world of two ranks against
+    TP 1's runs (`demo1`, `full1`); `rate_note` labels its iterations/s."""
+    r0 = ranks[0]
+    for part in ("demo", "w8a8", "full"):
+        for name in r0[part]:
+            if ranks[1][part][name]["streams"] != r0[part][name]["streams"]:
+                faults.append(f"{tag} {part} {name}: the ranks' streams differ")
+    for part, names in (("demo", ("jacobi", "mr")), ("w8a8", ("jacobi",))):
+        for name in names:
+            diff = [i for i, (a, b) in enumerate(zip(r0[part]["ar"]["streams"],
+                                                     r0[part][name]["streams"])) if a != b]
+            log(f"[tp] {tag} demo{' W8A8' if part == 'w8a8' else ''} TP 2: ar == {name} on 64 "
+                f"prompts: {not diff} (rows differing: {diff})")
+            if diff:
+                faults.append(f"{tag} {part}: ar and {name} differ in rows {diff}")
+    for part, anchor in (("demo", DEMO_TOKENS), ("w8a8", TP_W8A8_TOKENS)):
+        for name, run in r0[part].items():
+            toks = sum(len(s) for s in run["streams"])
+            n_eos = sum(bool(s) and s[-1] == eos for s in run["streams"])
+            line = (f"[tp] {tag} demo{' W8A8' if part == 'w8a8' else ''} TP 2 {name}: {toks} "
+                    f"tokens, {n_eos}/64 EOS (anchor {anchor} / 64: "
+                    f"{'equal' if (toks, n_eos) == (anchor, 64) else 'DIFFERS'}); "
+                    f"{run['forwards']} forwards in {run['wall']:.2f}s; launches per rank "
+                    f"{[attn(r[part][name]) for r in ranks]}; plain attention calls on CUDA "
+                    f"{[r[part][name]['plain'] for r in ranks]}")
+            if part == "demo":
+                same, n = match_rate(run["streams"], demo1[name]["streams"])
+                line += f"; tokens equal to TP 1's: {same}/{n}"
+            if name == "mr":
+                line += f"; MR tiers {run['tiers']} (TP 1: {demo1['mr']['tiers']})"
+            log(line)
+    full = r0["full"]
+    for name, run in full.items():
+        toks = sum(len(s) for s in run["streams"])
+        same, n = match_rate(run["streams"], full1[name]["streams"])
+        line = (f"[tp] {tag} Qwen2.5-7B widths TP 2 {name}: {toks} tokens, {run['forwards']} "
+                f"batched forwards in {run['wall']:.3f}s = {run['forwards'] / run['wall']:.2f} "
+                f"iterations/s ({rate_note}; TP 1 eager here: "
+                f"{full1[name]['forwards'] / full1[name]['wall']:.2f}); tokens equal to TP "
+                f"1's: {same}/{n}; launches per rank {[attn(r['full'][name]) for r in ranks]}; "
+                f"plain attention calls on CUDA {[r['full'][name]['plain'] for r in ranks]}")
+        if name == "mr":
+            line += f"; MR tiers {run['tiers']} (TP 1: {full1['mr']['tiers']})"
+        log(line)
+    same, n = match_rate(full["ar"]["streams"], full["jacobi"]["streams"])
+    log(f"[tp] {tag} Qwen2.5-7B widths TP 2: AR vs Jacobi {same}/{n} tokens equal (bf16 "
+        f"near-ties on a random model make this a reported number); per rank "
+        f"{r0['full_q_heads']} query heads, {r0['full_kv_heads']} KV heads, "
+        f"{r0['weights_gib']:.2f} GiB of weights, drawn whole and cut in {r0['init_s']:.1f}s, peak "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; CUDA graphs of the demo engine per "
+        f"rank {[r['graphs'] for r in ranks]}")
+    errs = [r["shard_rel_err"] for r in ranks]
+    log(f"[tp] {tag} Qwen2.5-7B widths TP 2 dense forward on the engine's shards against the "
+        f"full weights, 64 tokens: relative error (hidden, logits) per rank "
+        f"{[tuple(f'{e:.4f}' for e in x) for x in errs]} (bound {TP_SHARD_TOL})")
+    if any(e > TP_SHARD_TOL or e != e for x in errs for e in x):
+        faults.append(f"{tag}: the shards' forward is not the full weights' ({errs})")
+    heads = [(r["demo_kv_heads"], r["full_kv_heads"], r["full_q_heads"]) for r in ranks]
+    if any(h != (1, 2, 14) for h in heads):
+        faults.append(f"{tag}: per-rank (demo KV, 7B KV, 7B query) heads {heads}, want "
+                      "(1, 2, 14)")
+    for r in ranks:
+        for part in ("demo", "w8a8", "full"):
+            for name, run in r[part].items():
+                spec = run["launches"]["spec_attention"]
+                if run["launches"]["paged_attention"] <= 0 or run["plain"] or \
+                        (name == "mr") != (spec > 0):
+                    faults.append(f"{tag} {part} {name} did not run through the kernels alone "
+                                  f"({attn(run)}, {run['plain']} plain calls)")
+
+
+def phase_tp(counter, launches_out, params=None):
+    """Tensor-parallel serving at TP 2: two ranks sharing the card over gloo,
+    eagerly, against TP 1 in this process (and, with two cards or more, two
+    ranks on two cards over NCCL with CUDA graphs).  Gates: every rank exits
+    0, the ranks serve identical streams, `ar` == `jacobi` == `mr` on the demo
+    checkpoint in f32 and `ar` == `jacobi` under W8A8, each rank holds 1
+    (demo) / 2 (Qwen2.5-7B) KV heads and 14 query heads, the paged kernel
+    runs in every path and the speculative one in `mr` alone, no plain
+    attention runs on CUDA; NCCL's demo streams == gloo's.  Reported: tokens
+    and EOS beside the anchors, matches against TP 1, MR tier counts beside
+    TP 1's, and iterations/s (over gloo bound by its host round trips; not a
+    TP speed)."""
+    from jacobiforcing_tpu_torch.engine.llm import LLM
+    from jacobiforcing_tpu_torch.models.qwen import ModelConfig, init_params
+
+    # card 0's name and power limit (the ranks' cards are alike)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    with open(os.path.join(DEMO, "tpf_demo.json")) as f:
+        meta = json.load(f)
+    faults = []
+    # ---- TP 1 in this process ----
+    llm = demo_llm(meta, jacobi_mr_auto_policy=False)
+    demo1 = tp_serve(llm, demo_prompts(), demo_sps(meta, ("ar", "jacobi", "mr")), counter)
+    llm.exit()
+    cfg = ModelConfig()
+    if params is None:
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    llm = LLM(device="cuda", model_cfg=cfg, params=params, num_kv_pages=64,
+              kvcache_page_size=256, eos=-1, jacobi_mr_auto_policy=False, enforce_eager=True)
+    full1 = tp_serve(llm, full_width_prompts(cfg), tp_full_sps(), counter)
+    llm.exit()
+    del llm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_", dir=os.path.join(REPO, "build"))
+    worlds = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2 else [])
+    for backend in worlds:
+        t0 = time.perf_counter()
+        ranks = spawn_tp_ranks(backend, out_dir)
+        tag = ("gloo eager, both ranks on card 0" if backend == "gloo"
+               else "NCCL + CUDA graphs, cards 0 and 1")
+        log(f"[tp] {tag}: ranks on cards {[r['device'] for r in ranks]}, {smi}; "
+            f"{time.perf_counter() - t0:.1f}s")
+        note = (f"gloo-bound, not a TP speed, {smi}" if backend == "gloo"
+                else f"NCCL, CUDA graphs, {smi}")
+        report_tp(tag, ranks, demo1, full1, int(meta["eos"]), faults, note)
+        if backend == "gloo":
+            gloo0 = ranks[0]
+            full = gloo0["full"]
+            launches_out["tp2_jacobi"] = full["jacobi"]["launches"]
+            launches_out["tp2_mr"] = full["mr"]["launches"]
+            tiers = full["mr"]["tiers"]
+            launches_out["tp2_mr_main_shape"] = {"mr_ra_only": "T64", "mr_nocand": "T128",
+                                                 "mr_full": "T384"}[max(tiers, key=tiers.get)]
+        else:
+            same = all(ranks[0][part][n]["streams"] == gloo0[part][n]["streams"]
+                       for part in ("demo", "w8a8") for n in gloo0[part])
+            log(f"[tp] NCCL demo streams == gloo's: {same}")
+            if not same or not all(r["graphs"] > 0 for r in ranks):
+                faults.append("NCCL: demo streams differ from gloo's or no graph was captured")
+    if worlds == ["gloo"]:
+        log(f"[tp] NCCL + CUDA graphs at TP 2: not run ({torch.cuda.device_count()} card; NCCL "
+            "takes one rank per card)")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    if faults:
+        raise AssertionError("tp: " + "; ".join(faults))
+
+
 COMPARE_PATTERNS = {
     # [train-kernel-time] L=4096 ...: sdpa forward X ms, forward+backward Y ms
     "sdpa": r"\[train-kernel-time\] L=(\d+) .*sdpa forward ([\d.]+) ms, forward\+backward ([\d.]+)",
@@ -2568,6 +2985,9 @@ def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "compare":
         # python3 chip_smoke.py compare PARENT_TREE PHASES [ORDER [LOG_DIR]]
         return compare(sys.argv[2], *sys.argv[3:6])
+    if len(sys.argv) == 6 and sys.argv[1] == "tp-rank":
+        # one rank of the `tp` phase: tp-rank RANK PORT OUT_JSON BACKEND
+        return tp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2580,7 +3000,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phases = (sys.argv[1].split(",") if len(sys.argv) > 1
               else ["kernel", "train_kernel", "demo", "sampling", "full", "engine", "full_quant",
-                    "train"])
+                    "tp", "train"])
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
@@ -2606,6 +3026,7 @@ def main() -> int:
         kernel_design()
         run("kernel (paged attention)", phase_kernel, timing)
         run("kernel (speculative attention)", phase_spec_kernel, timing)
+        run("kernel (TP local heads)", phase_tp_kernel, timing)
     if "kernel" in phases or "int4" in phases:
         run("kernel (int4 matmul)", phase_int4_kernel, timing)
         phase_int4_path(launches)
@@ -2626,6 +3047,8 @@ def main() -> int:
         params = run("engine", phase_engine, counter, launches, params)
     if "full_quant" in phases:
         run("full_quant", phase_full_quant, counter, launches)
+    if "tp" in phases:
+        run("tp", phase_tp, counter, launches, params)
     if "train" in phases:
         run("train", phase_train, counter, launches, params)
     log(f"[phase] all, the build included: {time.perf_counter() - t0:.1f}s")
@@ -2644,6 +3067,12 @@ def main() -> int:
                  launches["w8a8_fp8_mr"]["spec_attention"]),
                 ("int4_matmul", timing["int4_gateup_M256"], launches["int4_path"]["int4_matmul"])]
         rows += [(n, timing[f"{n}_L4096"], launches["train"][n]) for n in TRAIN_KERNEL_NAMES]
+        if "tp" in phases:
+            # rank 0 of the TP 2 run: its Jacobi and MR paths on 2 KV heads
+            rows += [("paged_attention_kh2", timing["decode_kh2"],
+                      launches["tp2_jacobi"]["paged_attention"]),
+                     ("spec_attention_kh2", timing[launches["tp2_mr_main_shape"] + "_kh2"],
+                      launches["tp2_mr"]["spec_attention"])]
         print(json.dumps({"kernels": [{
             "name": name, "route": "cuda", **KERNELS[name], "launches": count,
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],

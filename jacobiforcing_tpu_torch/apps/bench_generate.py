@@ -9,6 +9,10 @@ strategies are `ar`, `jacobi`, `mr` (multiblock with rejection recycling) and
 `nongreedy` (rejection-sampling Jacobi at `--temperature`); `--max-blocks`,
 `--spawn-ratio`, `--lookahead-start-ratio` and `--n-gram-pool-size` shape `mr`; `--quantization int8|w8a8` and
 `--kv-cache-dtype fp8|int8|bf16` serve the model quantized.
+`--tensor-parallel-size N` serves it tensor-parallel under `torchrun
+--nproc_per_node N` (a flag the JAX app does not have: there one controller
+drives the mesh); every rank serves the same requests and only rank 0
+writes the files and prints.
 
 Usage:
     python -m jacobiforcing_tpu_torch.apps.bench_generate \
@@ -23,6 +27,9 @@ Usage:
     python -m jacobiforcing_tpu_torch.apps.bench_generate \
         --model /path/to/ckpt --dataset prompts.jsonl --strategy nongreedy \
         --temperature 0.7 --n-token-seq-len 64 --output-dir out/
+    torchrun --nproc_per_node 2 -m jacobiforcing_tpu_torch.apps.bench_generate \
+        --model /path/to/ckpt --dataset prompts.jsonl --strategy jacobi \
+        --tensor-parallel-size 2 --output-dir out/
 """
 
 from __future__ import annotations
@@ -126,20 +133,32 @@ def load_prompts(args, tokenizer) -> List[dict]:
 
 
 def run(args, engine=None, tokenizer=None):
+    from jacobiforcing_tpu_torch.parallel.multihost import initialize_multihost, is_primary
+
     if engine is None:
         from jacobiforcing_tpu_torch.engine.llm import LLM
 
+        if args.tensor_parallel_size > 1:
+            # the torchrun environment; NCCL between cards, gloo on the CPU
+            initialize_multihost(backend="nccl" if args.device.startswith("cuda") else "gloo")
         llm = LLM(model=args.model, device=args.device, num_kv_pages=args.num_kv_pages,
-                  quantization=args.quantization, kv_cache_dtype=args.kv_cache_dtype)
+                  quantization=args.quantization, kv_cache_dtype=args.kv_cache_dtype,
+                  tensor_parallel_size=args.tensor_parallel_size)
         engine, tokenizer = llm.engine, llm.tokenizer
 
     sp = build_sampling_params(args)
     rows = load_prompts(args, tokenizer)
-    os.makedirs(args.output_dir, exist_ok=True)
+    # every rank serves; the first writes the files and prints
+    primary = is_primary()
+    if primary:
+        os.makedirs(args.output_dir, exist_ok=True)
+
+    def out_path(name: str) -> str:
+        return os.path.join(args.output_dir, name) if primary else os.devnull
 
     L = max(args.n_token_seq_len, 1)
     profiles = []
-    gen_path = os.path.join(args.output_dir, f"generations_{args.strategy}.jsonl")
+    gen_path = out_path(f"generations_{args.strategy}.jsonl")
     with open(gen_path, "w") as gen_f:
         for idx, row in enumerate(rows):
             iters0 = engine.stats["jacobi_iterations"]
@@ -181,7 +200,7 @@ def run(args, engine=None, tokenizer=None):
                 "stop_reason": stop_reason,
             })
 
-    csv_path = os.path.join(args.output_dir, f"profile_{args.strategy}.csv")
+    csv_path = out_path(f"profile_{args.strategy}.csv")
     with open(csv_path, "w", newline="") as f:
         w = csv.DictWriter(f, fieldnames=list(profiles[0].keys()))
         w.writeheader()
@@ -214,9 +233,10 @@ def run(args, engine=None, tokenizer=None):
             for r in sorted({p["stop_reason"] for p in profiles})
         },
     }
-    with open(os.path.join(args.output_dir, f"summary_{args.strategy}.json"), "w") as f:
+    with open(out_path(f"summary_{args.strategy}.json"), "w") as f:
         json.dump(agg, f, indent=2)
-    print(json.dumps(agg))
+    if primary:
+        print(json.dumps(agg))
     return agg, profiles
 
 
@@ -230,6 +250,8 @@ def make_parser() -> argparse.ArgumentParser:
                    help="int8: weight-only; w8a8: int8 weights and activations")
     p.add_argument("--kv-cache-dtype", choices=["", "fp8", "int8", "bf16"], default="",
                    help="KV storage type; fp8 and int8 carry per-row scales")
+    p.add_argument("--tensor-parallel-size", type=int, default=1,
+                   help="ranks of the model group; run under torchrun --nproc_per_node N")
     p.add_argument("--dataset", default="")
     p.add_argument("--dataset-format", choices=["generic", "humaneval", "math500"],
                    default="generic")
@@ -251,3 +273,7 @@ def make_parser() -> argparse.ArgumentParser:
 
 if __name__ == "__main__":
     run(make_parser().parse_args())
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -16,8 +16,12 @@ speculative host pipeline (`jacobi_async_host`, on by default).  On a CUDA
 device the AR step and every Jacobi trip replay one CUDA graph per shape
 bucket, the counterpart of the JAX package's one compiled executable per
 bucket; `enforce_eager=True` (the reference engine's switch of that name)
-runs them eagerly instead.  Tensor and data parallelism are not served yet
-and raise `NotImplementedError` when set.  The XLA compilation-cache and TPU
+runs them eagerly instead.  `tensor_parallel_size` > 1 serves the model
+tensor-parallel over a `torch.distributed` world (`parallel/`; the engine
+raises `ValueError` where the world's model axis differs or the KV heads do
+not divide).  `data_parallel_size` > 1 raises `NotImplementedError`: the JAX
+engine never reads it either, and the data axis takes its meaning in
+training.  The XLA compilation-cache and TPU
 memory-sizing fields have no counterpart here, nor does `jacobi_enabled`,
 which neither package reads.
 """
@@ -113,7 +117,7 @@ class Config:
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype={self.kv_cache_dtype!r}: expected one of "
                              f"{KV_CACHE_DTYPES}")
-        _reject_unported(self, {"tensor_parallel_size": 1, "data_parallel_size": 1})
+        _reject_unported(self, {"data_parallel_size": 1})
         if self.model:
             self.model_path = resolve_checkpoint_dir(self.model)
 

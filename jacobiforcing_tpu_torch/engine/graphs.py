@@ -25,6 +25,11 @@ graph's launches to their counts instead (`paged_attention_cuda.launches`
 counts kernel runs either way).  A capture that fails raises; nothing falls
 back to eager.  Without `capture` (the CPU, or `enforce_eager`) the same
 programs run their trips eagerly over the same buffers.
+
+Under tensor parallelism (`group`, the model group) a trip holds the
+forward's collectives.  An NCCL group's collectives are captured into the
+graph with the kernels; a gloo group cannot be captured, so capturing over
+one raises (`Config.enforce_eager=True` runs such a world eagerly).
 """
 
 from __future__ import annotations
@@ -34,8 +39,10 @@ import time
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from jacobiforcing_tpu_torch.engine import runner
+from jacobiforcing_tpu_torch.parallel.collectives import Group
 from jacobiforcing_tpu_torch.utils.profiling import get_profiler
 
 
@@ -68,8 +75,14 @@ class ChunkProgram:
 
 class DecodePrograms:
     def __init__(self, params, cfg, rope, kv, generator: torch.Generator, *, pages_bucket: int,
-                 cap_tokens: int, chunk_budget: int, chunk_iters: int, capture: bool):
+                 cap_tokens: int, chunk_budget: int, chunk_iters: int, capture: bool,
+                 group: Group = None):
+        if capture and group is not None and dist.get_backend(group) != "nccl":
+            raise ValueError(
+                f"a {dist.get_backend(group)} model group cannot be captured in CUDA graphs: "
+                "run it with enforce_eager=True, or use NCCL")
         self.params, self.cfg, self.rope, self.kv = params, cfg, rope, kv
+        self.group = group
         self.generator = generator
         self.device = generator.device
         self.pages_bucket, self.cap_tokens = pages_bucket, cap_tokens
@@ -94,7 +107,7 @@ class DecodePrograms:
                 return runner.ar_decode_step(
                     self.params, self.cfg, self.rope, self.kv, prog.last_tokens,
                     prog.seq_lens, prog.block_tables, prog.active, prog.temperature,
-                    self.generator)[1]
+                    self.generator, self.group)[1]
 
             if self.capture:
                 graph, prog.out = self._capture(key, step)
@@ -114,9 +127,10 @@ class DecodePrograms:
             prog = ChunkProgram(buf)
             if nongreedy:
                 step = runner.nongreedy_step(self.params, self.cfg, self.rope, buf,
-                                             self.generator, top_k, use_top_p)
+                                             self.generator, top_k, use_top_p, self.group)
             else:
-                step = runner.greedy_step(self.params, self.cfg, self.rope, buf, self.generator)
+                step = runner.greedy_step(self.params, self.cfg, self.rope, buf, self.generator,
+                                          self.group)
 
             def trip():
                 runner.chunk_trip(step, self.kv, buf, self.chunk_budget, self.chunk_iters)

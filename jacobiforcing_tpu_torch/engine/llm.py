@@ -8,7 +8,7 @@
 `generate` merges the greedy/Jacobi convenience kwargs into SamplingParams
 and delegates to the engine.  Keyword arguments that name a `Config` field
 configure the engine; the rest (`device`, `dtype`, `num_kv_pages`, `kv_dtype`,
-`model_cfg`, `params`) go to `LLMEngine`.  Quantized serving is configuration:
+`model_cfg`, `params`, `mesh`) go to `LLMEngine`.  Quantized serving is configuration:
 
     llm = LLM(model=..., quantization="w8a8", kv_cache_dtype="fp8")
 
@@ -21,6 +21,12 @@ Sampled decoding: `SamplingParams(temperature=0.7, decode_strategy="jacobi")`
 Jacobi; `decode_strategy="jacobi_on_policy"` runs on-policy rollouts and adds
 `rollout_records` to each output (temperature 0 is the greedy trajectory
 collector of `data/collect.collect_trajectories`).
+
+Tensor-parallel serving under `torchrun`: every rank joins the world
+(`parallel.multihost.initialize_multihost`) and builds the same
+`LLM(model=..., tensor_parallel_size=N)`; each loads the checkpoint on the
+host, moves its share to its card, serves the same requests and returns the
+same outputs.  Full `params` given instead are cut the same way.
 """
 
 from __future__ import annotations

@@ -18,6 +18,15 @@ strategies:
     `engine/mr_policy.py`, with exact handoffs between the MR state machine
     and the single-block program.
 
+Tensor parallelism (`Config.tensor_parallel_size`) is SPMD over the ranks of
+a `torch.distributed` world: every rank runs this engine on the same
+requests and makes the same scheduling decisions, holding its share of the
+parameters (`parallel/sharding.py`) and `num_kv_heads / tp` heads of the KV
+pool.  The collectives live inside the forward; the host values a rank
+could see differently (the free device memory that sizes the pool, the MR
+auto-policy's wall time) are reduced or broadcast from the group's first
+rank, so every rank schedules, preempts and picks policy arms alike.
+
 On a CUDA device the AR step and each Jacobi trip replay one CUDA graph per
 shape bucket (`engine/graphs.py`; `Config.enforce_eager` turns them off);
 prefill, MR chunks and on-policy blocks run eagerly.  `warmup` drives
@@ -47,6 +56,7 @@ from typing import Any, Dict, List, Optional, Sequence as PySeq
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from jacobiforcing_tpu_torch.config import Config, SamplingParams
 from jacobiforcing_tpu_torch.engine import runner
@@ -59,7 +69,11 @@ from jacobiforcing_tpu_torch.engine.sequence import Sequence, SequenceStatus
 from jacobiforcing_tpu_torch.models.qwen import ModelConfig, rope_table
 from jacobiforcing_tpu_torch.ops.kv_cache import alloc_kv_cache, needs_row_scales
 from jacobiforcing_tpu_torch.ops.quant import int_mm_layout, quantize_params
+from jacobiforcing_tpu_torch.parallel import collectives
+from jacobiforcing_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh, make_mesh, set_serving_mesh
+from jacobiforcing_tpu_torch.parallel.sharding import shard_params
 from jacobiforcing_tpu_torch.utils.device import resolve_device
+from jacobiforcing_tpu_torch.utils.loader import load_checkpoint, move_params
 from jacobiforcing_tpu_torch.utils.profiling import get_profiler
 
 
@@ -109,6 +123,20 @@ class _PendingChunk:
         self.stat_key = stat_key
 
 
+def _tp_mesh(tp: int) -> Mesh:
+    """The serving mesh of `Config.tensor_parallel_size` over the joined
+    world (`parallel/multihost.initialize_multihost`): one model group of
+    every rank.  A larger world would need a data axis, which serving does
+    not have (`Config.data_parallel_size`)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != tp:
+        raise ValueError(
+            f"tensor_parallel_size={tp} needs a torch.distributed world of {tp} ranks "
+            f"(this one has {world}): join one with parallel.multihost.initialize_multihost, "
+            "e.g. under torchrun, or pass a mesh")
+    return make_mesh(tensor_parallel_size=tp)
+
+
 def _bucket(n: int, buckets: PySeq[int]) -> int:
     for b in buckets:
         if n <= b:
@@ -121,6 +149,9 @@ class LLMEngine:
     NONGREEDY = "jacobi_nongreedy"
     ON_POLICY = "jacobi_on_policy"
     SUPPORTED_STRATEGIES = {"autoregressive", "jacobi", NONGREEDY, ON_POLICY, MR}
+    # the serving mesh and its model group: None without tensor parallelism
+    mesh: Optional[Mesh] = None
+    group: Optional[dist.ProcessGroup] = None
 
     def __init__(
         self,
@@ -133,25 +164,44 @@ class LLMEngine:
         kv_dtype: Optional[torch.dtype] = None,
         dtype: torch.dtype = torch.bfloat16,
         device="cuda",
+        mesh: Optional[Mesh] = None,
     ):
         self.config = config
         self.device = resolve_device(device)
         # what the profiler's timers wait for (PROFILE=1); nothing on the CPU
         self._sync = (lambda: torch.cuda.synchronize(self.device)) \
             if self.device.type == "cuda" else None
+        tp = config.tensor_parallel_size
+        # groups the engine creates are its own to destroy at exit
+        self._owns_mesh = mesh is None and tp > 1
+        self.mesh = mesh if mesh is not None else (_tp_mesh(tp) if tp > 1 else None)
+        if self.mesh is not None and self.mesh.shape[MODEL_AXIS] != tp:
+            raise ValueError(f"the mesh's model axis has {self.mesh.shape[MODEL_AXIS]} ranks, "
+                             f"tensor_parallel_size={tp}")
+        if self.mesh is not None:
+            self.group = self.mesh.model_group
+        set_serving_mesh(self.mesh)
+        quantize = config.quantization in ("int8", "w8a8")
         if params is None:
-            from jacobiforcing_tpu_torch.utils.loader import load_checkpoint
-
-            model_cfg, params = load_checkpoint(config.model_path, dtype=dtype, device=self.device)
+            # under tensor parallelism the checkpoint stays on the host until
+            # it is cut: a rank's card never holds the full model
+            model_cfg, params = load_checkpoint(config.model_path, dtype=dtype,
+                                                device=self.device if tp == 1 else "cpu")
         assert model_cfg is not None
-        if config.quantization in ("int8", "w8a8"):
-            # leaves that are quantized already (`init_quantized_params`) stay
+        if model_cfg.num_kv_heads % tp:
+            raise ValueError(f"kv heads {model_cfg.num_kv_heads} not divisible by tp={tp}")
+        if quantize:
+            # leaves that are quantized already (`init_quantized_params`) stay;
+            # a row-parallel weight's scales come from all of its rows, so
+            # this runs on the full weights, before they are cut
             params = quantize_params(params)
-            if config.quantization == "w8a8":
-                # per-token activation quantization + int8 x int8 products
-                model_cfg = dataclasses.replace(model_cfg, act_quant=True)
-                if self.device.type == "cuda":
-                    params = int_mm_layout(params)  # the int8 GEMM's fast layout
+        if tp > 1:
+            params = move_params(shard_params(params, model_cfg, self.mesh), self.device)
+        if config.quantization == "w8a8":
+            # per-token activation quantization + int8 x int8 products
+            model_cfg = dataclasses.replace(model_cfg, act_quant=True)
+            if self.device.type == "cuda":
+                params = int_mm_layout(params)  # the int8 GEMM's fast layout
         self.model_cfg = model_cfg
         self.params = params
         self.tokenizer = tokenizer
@@ -170,7 +220,7 @@ class LLMEngine:
         if npages is None:
             npages = self._pages_from_memory(page, kv_dtype)
         self.kv = alloc_kv_cache(
-            model_cfg.num_layers, npages, page, model_cfg.num_kv_heads,
+            model_cfg.num_layers, npages, page, model_cfg.num_kv_heads // tp,
             model_cfg.head_dim, kv_dtype, self.device,
         )
         self.block_manager = BlockManager(npages, page)
@@ -194,7 +244,7 @@ class LLMEngine:
             self.params, model_cfg, self.rope, self.kv, self.generator,
             pages_bucket=self.pages_bucket, cap_tokens=self.cap_tokens,
             chunk_budget=config.jacobi_chunk_tokens, chunk_iters=config.jacobi_chunk_iters,
-            capture=self.device.type == "cuda" and not config.enforce_eager)
+            capture=self.device.type == "cuda" and not config.enforce_eager, group=self.group)
         # outstanding speculative Jacobi chunks by group signature
         self._pending: Dict[tuple, _PendingChunk] = {}
 
@@ -202,22 +252,29 @@ class LLMEngine:
     def _pages_from_memory(self, page: int, kv_dtype: torch.dtype) -> int:
         """Size the KV pool from free device memory (40k-page hard cap): the
         storage type's element size, plus 4 bytes per row and KV head for each
-        scale plane of a narrow type.  With CUDA graphs, room for the graph
-        pool is kept back first (`_graph_pool_estimate`)."""
+        scale plane of a narrow type, for this rank's KV heads.  With CUDA
+        graphs, room for the graph pool is kept back first
+        (`_graph_pool_estimate`).  Under tensor parallelism every rank takes
+        the smallest count of the group: ranks that see different free memory
+        (two sharing a card) would otherwise schedule and preempt apart."""
         if self.device.type != "cuda":
             raise ValueError("on the CPU pass num_kv_pages: there is no device memory to size "
                              "the KV pool from")
         mc = self.model_cfg
+        kh = mc.num_kv_heads // self.config.tensor_parallel_size
         itemsize = torch.empty((), dtype=kv_dtype).element_size()
-        bytes_per_tok = 2 * mc.num_layers * mc.num_kv_heads * mc.head_dim * itemsize
+        bytes_per_tok = 2 * mc.num_layers * kh * mc.head_dim * itemsize
         if needs_row_scales(kv_dtype):
-            bytes_per_tok += 2 * mc.num_layers * mc.num_kv_heads * 4
+            bytes_per_tok += 2 * mc.num_layers * kh * 4
         free, total = torch.cuda.mem_get_info(self.device)
         avail = int(total * self.config.hbm_utilization) - (total - free)
         if not self.config.enforce_eager:
             avail -= self._graph_pool_estimate()
         avail = max(avail, 1 << 28)
         npages = int(avail // (bytes_per_tok * page))
+        if self.group is not None:
+            npages = int(collectives.reduce_min(torch.tensor([npages], device=self.device),
+                                                self.group))
         return max(16, min(npages, 40_000))
 
     def _graph_pool_estimate(self) -> int:
@@ -225,10 +282,13 @@ class LLMEngine:
         the largest trip (largest batch bucket x block length rows): three
         float32 vocab chunks of the head (32,768 columns) and six MLP-wide
         activations per row, plus three [rows, V] float32 tensors for the
-        top-k / top-p verify.  The pool holds what its largest graph needs."""
+        top-k / top-p verify, at this rank's widths (the verify's logits
+        are gathered whole).  The pool holds what its largest graph needs."""
         mc, cfg = self.model_cfg, self.config
+        tp = cfg.tensor_parallel_size
         rows = cfg.batch_buckets[-1] * cfg.jacobi_block_len
-        return rows * 4 * (3 * 32768 + 6 * mc.intermediate_size + 3 * mc.vocab_size)
+        chunk = min(32768, mc.vocab_size // tp)
+        return rows * 4 * (3 * chunk + 6 * mc.intermediate_size // tp + 3 * mc.vocab_size)
 
     # ------------------------------------------------------------------
     def add_request(self, token_ids: List[int], sampling_params: SamplingParams) -> Sequence:
@@ -331,7 +391,7 @@ class LLMEngine:
         self.kv, _, _ = runner.prefill(
             self.params, self.model_cfg, self.rope, self._tensor(ids),
             self._tensor(starts), self._tensor(totals), self._tensor(totals),
-            self.kv, bt, n_out=1,
+            self.kv, bt, n_out=1, group=self.group,
         )
         if prof:
             prof.stop("prefill.forward")
@@ -385,7 +445,7 @@ class LLMEngine:
         self.kv, last_logits, draft = runner.prefill(
             self.params, self.model_cfg, self.rope, self._tensor(ids),
             self._tensor(starts_a), self._tensor(totals_a), self._tensor(prompts_a),
-            self.kv, bt, n_out=n_out,
+            self.kv, bt, n_out=n_out, group=self.group,
         )
         # only the AR rows read the [B, V] logits; Jacobi rows take the draft
         need_logits = any(not self._is_jacobi(s) for s in seqs)
@@ -726,6 +786,11 @@ class LLMEngine:
             )
         # every chunk path ends with a host read-back, so this wall time is real
         dt = time.perf_counter() - t0
+        if self.group is not None:
+            # ranks' clocks differ: the arms are picked from the group's first
+            # rank's wall time, or the ranks would part in their collectives
+            dt = float(collectives.broadcast_first(
+                torch.tensor([dt], dtype=torch.float64, device=self.device), self.group))
         toks = self.stats["generated_tokens"] - gen0
         # drain edge: some row hit its finish condition during this chunk; its
         # collapsed per-slot yield is batch structure, not workload drift
@@ -890,7 +955,7 @@ class LLMEngine:
             self._tensor(spawn_thr), self._tensor(la_start), self._tensor(max_iters),
             N=N, K=K, C=C, W=W,
             chunk_budget=self.config.jacobi_chunk_tokens,
-            chunk_iters=self.config.jacobi_chunk_iters,
+            chunk_iters=self.config.jacobi_chunk_iters, group=self.group,
         )
         host = {k: v.cpu().numpy() for k, v in res.items() if k != "kv"}
         toks, cur_out, iters_out, gen = (
@@ -962,7 +1027,7 @@ class LLMEngine:
             self._tensor(gen_len), self._tensor(active), self._pad_block_table(seqs, B),
             self._tensor(capacity), self._tensor(temps), self._tensor(top_ps), self.generator,
             self._tensor(stops_arr), pad_id, top_k=top_k, use_top_p=use_top_p,
-            greedy_mode=greedy_mode, accept_threshold=accept_threshold,
+            greedy_mode=greedy_mode, accept_threshold=accept_threshold, group=self.group,
         )
         self.kv = res["kv"]
         tokens_out, cur_out, iters_out, fwds_out, stopped_out, traj_out = (
@@ -999,11 +1064,17 @@ class LLMEngine:
     # ------------------------------------------------------------------
     def exit(self) -> None:
         """Release the pending chunks, the graphs, the KV pool and the
-        weights' references."""
+        weights' references, and clear the serving mesh.  The process groups
+        of a mesh the engine built are destroyed; a mesh it was given, and
+        the world, stay with their owner."""
         self._pending.clear()
         self.programs = None
         self.kv = None
         self.params = None
+        set_serving_mesh(None)
+        if self._owns_mesh and self.mesh is not None:
+            self.mesh.destroy()
+        self.mesh = self.group = None
 
     def __enter__(self):
         return self

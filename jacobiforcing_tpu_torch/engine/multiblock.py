@@ -38,6 +38,7 @@ from typing import Any, Dict, NamedTuple
 import torch
 
 from jacobiforcing_tpu_torch.models.qwen import ModelConfig, forward_spec, greedy_tokens
+from jacobiforcing_tpu_torch.parallel.collectives import Group
 from jacobiforcing_tpu_torch.ops.kv_cache import (
     KVCache,
     quantize_rows,
@@ -187,6 +188,7 @@ def jacobi_chunk_multiblock(
     W: int,  # pool entry width
     chunk_budget: int,
     chunk_iters: int = 0,
+    group: Group = None,  # the model group (tensor parallelism)
 ) -> Dict[str, torch.Tensor]:
     dev = cur_len.device
     B = cur_len.shape[0]
@@ -423,8 +425,8 @@ def jacobi_chunk_multiblock(
 
     def spec_forward(out_tokens, out_pos, intra, cur):
         h, k_n, v_n = forward_spec(
-            params, cfg, out_tokens, out_pos, kv, block_tables, cur, intra, rope)
-        return i64(greedy_tokens(params, cfg, h)), k_n, v_n
+            params, cfg, out_tokens, out_pos, kv, block_tables, cur, intra, rope, group=group)
+        return i64(greedy_tokens(params, cfg, h, group=group)), k_n, v_n
 
     while True:
         alive = alive_fn(st)

@@ -24,6 +24,11 @@ under a delta proposal), and `jacobi_onpolicy_block` runs one block to
 completion while recording every intermediate block state (the trajectory
 collector).  Their random draws come from the caller's generator in a fixed
 order per iteration, so one seed gives one stream.
+
+Tensor parallelism: every program takes the model group (`group`, None for
+one rank) and passes it to the forward and the heads.  The logits a program
+samples from are gathered in vocab order and the generator is seeded alike
+on every rank, so every rank draws, verifies and commits the same tokens.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from jacobiforcing_tpu_torch.models.qwen import (
 )
 from jacobiforcing_tpu_torch.ops.kv_cache import KVCache
 from jacobiforcing_tpu_torch.ops.sampling import gumbel, sample, target_probs
+from jacobiforcing_tpu_torch.parallel.collectives import Group
 
 
 def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -76,6 +82,7 @@ def prefill(
     block_tables: torch.Tensor,  # [B, P]
     *,
     n_out: int = 1,
+    group: Group = None,
 ) -> Tuple[KVCache, torch.Tensor, torch.Tensor]:
     """Forward padded prompt suffixes (plus an appended random draft) once.
 
@@ -91,12 +98,12 @@ def prefill(
     positions = positions.clamp(max=cfg.max_position - 1)
     h, kv = forward(
         params, cfg, input_ids, positions, kv, block_tables,
-        cache_lens=total_lens, rope=rope, write_mask=write_mask,
+        cache_lens=total_lens, rope=rope, write_mask=write_mask, group=group,
     )
     gather_abs = prompt_lens[:, None] - 1 + _arange(n_out, input_ids)[None, :]
     gather_rel = (gather_abs - start_pos[:, None]).clamp(0, T - 1).long()
     h_sel = torch.gather(h, 1, gather_rel[:, :, None].expand(-1, -1, h.shape[-1]))
-    logits = logits_at(params, cfg, h_sel)  # [B, n_out, V]
+    logits = logits_at(params, cfg, h_sel, group)  # [B, n_out, V]
     draft = torch.argmax(logits, dim=-1).to(torch.int32)
     return kv, logits[:, 0, :], draft
 
@@ -118,14 +125,15 @@ def ar_decode_step(
     active: torch.Tensor,  # [B] bool
     temperature: torch.Tensor,  # [B] float32; 0 = greedy
     generator: torch.Generator,
+    group: Group = None,
 ) -> Tuple[KVCache, torch.Tensor]:
     """One AR decode step: forward the token at position S-1, sample the next."""
     positions = (seq_lens - 1)[:, None]
     h, kv = forward(
         params, cfg, last_tokens[:, None], positions, kv, block_tables,
-        cache_lens=seq_lens, rope=rope, write_mask=active[:, None],
+        cache_lens=seq_lens, rope=rope, write_mask=active[:, None], group=group,
     )
-    logits = logits_at(params, cfg, h[:, 0, :])  # [B, V]
+    logits = logits_at(params, cfg, h[:, 0, :], group)  # [B, V]
     t = temperature.clamp(min=1e-6)
     next_tokens = sample(logits / t[:, None], generator, temperature)
     return kv, next_tokens
@@ -177,7 +185,7 @@ def _jacobi_cond(chunk_budget, max_iters, state: JacobiState, len_limit, capacit
     )
 
 
-def _forward_draft(params, cfg, rope, state: JacobiState, active, block_tables):
+def _forward_draft(params, cfg, rope, state: JacobiState, active, block_tables, group):
     """Forward each row's L-token draft at positions cur_len-1 ...; active
     rows write their K/V.  Returns (hidden [B, L, H], kv)."""
     B, L = state.draft.shape
@@ -185,6 +193,7 @@ def _forward_draft(params, cfg, rope, state: JacobiState, active, block_tables):
     return forward(
         params, cfg, state.draft, positions, state.kv, block_tables,
         cache_lens=state.cur_len - 1 + L, rope=rope, write_mask=active[:, None].expand(B, L),
+        group=group,
     )
 
 
@@ -220,13 +229,14 @@ def _commit_and_redraft(
 
 
 def _jacobi_step(
-    params, cfg, rope, state: JacobiState, active, block_tables, generator, eos_token_id
+    params, cfg, rope, state: JacobiState, active, block_tables, generator, eos_token_id,
+    group: Group = None,
 ) -> JacobiState:
     """One greedy Jacobi iteration over every row; inactive rows keep their state."""
     B, L = state.draft.shape
     j = _arange(L - 1, state.draft)[None, :]
-    h, kv = _forward_draft(params, cfg, rope, state, active, block_tables)
-    greedy_full = greedy_tokens(params, cfg, h)  # [B, L]
+    h, kv = _forward_draft(params, cfg, rope, state, active, block_tables, group)
+    greedy_full = greedy_tokens(params, cfg, h, group=group)  # [B, L]
 
     # ---- verify ----
     spec = state.draft[:, 1:]  # [B, L-1]
@@ -254,7 +264,7 @@ def _jacobi_step(
 
 def _nongreedy_step(
     params, cfg, rope, state: JacobiState, active, block_tables, generator, eos_token_id,
-    temperature, top_p, top_k: int, use_top_p: bool,
+    temperature, top_p, top_k: int, use_top_p: bool, group: Group = None,
 ) -> JacobiState:
     """One rejection-sampling Jacobi iteration (delta proposal): accept the
     drafted x_t with probability p_t(x_t); at the first rejection draw a bonus
@@ -263,7 +273,7 @@ def _nongreedy_step(
     B, L = state.draft.shape
     j = _arange(L - 1, state.draft)[None, :]
     rows = torch.arange(B, device=state.draft.device)
-    h, kv = _forward_draft(params, cfg, rope, state, active, block_tables)
+    h, kv = _forward_draft(params, cfg, rope, state, active, block_tables, group)
     spec = state.draft[:, 1:]  # [B, L-1] proposed tokens
 
     # ---- stochastic verify ----
@@ -272,10 +282,10 @@ def _nongreedy_step(
         # acceptance needs only p(drafted token): vocab-chunked logsumexp, no
         # [B, L, V] logits
         p_x = torch.exp(chunked_token_logprob(params, cfg, h[:, : L - 1], spec,
-                                              temperature[:, None]))
-        greedy_full = greedy_tokens(params, cfg, h)
+                                              temperature[:, None], group=group))
+        greedy_full = greedy_tokens(params, cfg, h, group=group)
     else:
-        logits = logits_at(params, cfg, h)  # [B, L, V]
+        logits = logits_at(params, cfg, h, group)  # [B, L, V]
         greedy_full = torch.argmax(logits, dim=-1).to(torch.int32)
         probs = target_probs(logits[:, : L - 1], temperature[:, None], top_k=top_k,
                              top_p=top_p[:, None] if use_top_p else None)  # [B, L-1, V]
@@ -291,7 +301,8 @@ def _nongreedy_step(
     proposed_rej = spec[rows, t_rej].long()
     if light:
         # the full distribution at ONE position per row
-        logp = logits_at(params, cfg, h[rows, t_rej]) / temperature.clamp(min=1e-6)[:, None]
+        logp = (logits_at(params, cfg, h[rows, t_rej], group)
+                / temperature.clamp(min=1e-6)[:, None])
     else:
         logp = torch.log(probs[rows, t_rej].clamp(min=1e-30))  # [B, V]
     z = logp + gumbel(logp.shape, generator, logp.device)
@@ -396,20 +407,20 @@ def chunk_trip(step, kv: KVCache, buf: ChunkBuffers, chunk_budget: int,
     buf.flag.copy_(trip_active(buf, chunk_budget, chunk_iters).any())
 
 
-def greedy_step(params, cfg, rope, buf: ChunkBuffers, generator):
+def greedy_step(params, cfg, rope, buf: ChunkBuffers, generator, group: Group = None):
     """The greedy iteration over `buf`'s chunk inputs, for `chunk_trip`."""
     def step(st, active):
         return _jacobi_step(params, cfg, rope, st, active, buf.block_tables, generator,
-                            buf.eos_id)
+                            buf.eos_id, group)
     return step
 
 
 def nongreedy_step(params, cfg, rope, buf: ChunkBuffers, generator, top_k: int,
-                   use_top_p: bool):
+                   use_top_p: bool, group: Group = None):
     """The rejection-sampling iteration over `buf`'s chunk inputs."""
     def step(st, active):
         return _nongreedy_step(params, cfg, rope, st, active, buf.block_tables, generator,
-                               buf.eos_id, buf.temperature, buf.top_p, top_k, use_top_p)
+                               buf.eos_id, buf.temperature, buf.top_p, top_k, use_top_p, group)
     return step
 
 
@@ -481,6 +492,7 @@ def jacobi_chunk_greedy(
     *,
     chunk_budget: int,
     chunk_iters: int = 0,
+    group: Group = None,
 ) -> Dict[str, torch.Tensor]:
     """Run greedy Jacobi iterations until every row is done or stalled.
 
@@ -488,7 +500,7 @@ def jacobi_chunk_greedy(
     chunk_iters > 0 by a fixed number of loop trips in which every
     unfinished row takes part.
     """
-    return _chunk(lambda buf: greedy_step(params, cfg, rope, buf, generator), kv, tokens,
+    return _chunk(lambda buf: greedy_step(params, cfg, rope, buf, generator, group), kv, tokens,
                   cur_len, draft, eos, iters, block_tables, capacity, len_limit, max_iters,
                   eos_token_id, chunk_budget, chunk_iters)
 
@@ -517,6 +529,7 @@ def jacobi_chunk_nongreedy(
     chunk_iters: int = 0,
     top_k: int = -1,
     use_top_p: bool = False,
+    group: Group = None,
 ) -> Dict[str, torch.Tensor]:
     """Jacobi decoding with speculative-decoding-style stochastic verification
     under a delta proposal (the reference's
@@ -529,7 +542,8 @@ def jacobi_chunk_nongreedy(
     `target_probs` over [B, L-1, V].  Chunking as in `jacobi_chunk_greedy`.
     """
     return _chunk(
-        lambda buf: nongreedy_step(params, cfg, rope, buf, generator, top_k, use_top_p), kv,
+        lambda buf: nongreedy_step(params, cfg, rope, buf, generator, top_k, use_top_p, group),
+        kv,
         tokens, cur_len, draft, eos, iters, block_tables, capacity, len_limit, max_iters,
         eos_token_id, chunk_budget, chunk_iters, temperature=temperature, top_p=top_p)
 
@@ -564,7 +578,7 @@ def _onpolicy_active(state: OnPolicyState, gen_len, capacity):
 def _onpolicy_step(
     params, cfg, rope, state: OnPolicyState, active, gen_len, block_tables, temperature,
     top_p, generator, stop_tokens, pad_token_id, top_k, use_top_p, greedy_mode,
-    accept_threshold,
+    accept_threshold, group: Group = None,
 ) -> OnPolicyState:
     B, L = state.block_tokens.shape
     dev = state.block_tokens.device
@@ -583,9 +597,9 @@ def _onpolicy_step(
     write_mask = (j1 <= remaining[:, None]) & active[:, None]
     h, kv = forward(
         params, cfg, draft, positions, state.kv, block_tables,
-        cache_lens=state.cur_len + remaining, rope=rope, write_mask=write_mask,
+        cache_lens=state.cur_len + remaining, rope=rope, write_mask=write_mask, group=group,
     )
-    logits = logits_at(params, cfg, h[:, :L])  # [B, L, V]
+    logits = logits_at(params, cfg, h[:, :L], group)  # [B, L, V]
     greedy_full = torch.argmax(logits, dim=-1).to(torch.int32)
     undecided = jT < remaining[:, None]
 
@@ -688,6 +702,7 @@ def jacobi_onpolicy_block(
     use_top_p: bool = False,
     greedy_mode: bool = False,
     accept_threshold: float = 0.0,
+    group: Group = None,
 ) -> Dict[str, torch.Tensor]:
     """Run ONE Jacobi block to completion, recording every intermediate block
     state: the on-policy trajectory collector (the reference's
@@ -724,7 +739,7 @@ def jacobi_onpolicy_block(
         state = _onpolicy_step(
             params, cfg, rope, state, active, gen_len, block_tables, temperature, top_p,
             generator, stop_tokens, pad_token_id, top_k, use_top_p, greedy_mode,
-            accept_threshold,
+            accept_threshold, group,
         )
     return {
         "kv": state.kv,

@@ -17,6 +17,19 @@ stored as fp8 e4m3 / int8 with per-row scales (`ops/kv_cache.py`); `forward`
 then quantizes what it writes and `forward_spec` fake-quantizes the in-flight
 block, so every decoder sees the same stored values.
 
+Tensor parallelism: `forward`, `forward_spec`, `forward_dense` and the heads
+take the model group (`group`, a `torch.distributed` ProcessGroup, None for
+one rank) and this rank's share of the parameters (`parallel/sharding`):
+column-parallel q/k/v, gate and up projections (local heads are read from
+the weights' widths), row-parallel o and down projections whose partial
+products are all-reduced before each residual add, and a vocab-parallel
+embedding and head.  The residual stream and the norms stay replicated, so
+every rank holds the same hidden states.  The head never gathers [..., V]
+logits where a reduction will do: `greedy_tokens` reduces each rank's
+(max, first arg-max) and `chunked_token_logprob` each rank's online (max,
+sum) in O(rows) bytes; `logits_at` gathers the logits in vocab order for
+the callers that need the whole distribution.
+
 Sums are accumulated in float32, or float64 for a float64 model, exactly as
 `acc_dtype` does there.  Qwen2-style (QKV bias) and Qwen3-style (per-head
 q/k RMSNorm) checkpoints are both supported through `ModelConfig` flags.
@@ -43,6 +56,14 @@ from jacobiforcing_tpu_torch.ops.kv_cache import (
     write_plan,
 )
 from jacobiforcing_tpu_torch.ops.quant import act_quantize, int8_matmul, mm
+from jacobiforcing_tpu_torch.parallel.collectives import (
+    Group,
+    copy_in,
+    gather_last,
+    gather_stack,
+    group_rank,
+    reduce_sum,
+)
 from jacobiforcing_tpu_torch.utils.device import resolve_device
 
 
@@ -267,6 +288,22 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([o1, o2], dim=-1).to(x.dtype)
 
 
+def embed(params: Dict[str, Any], cfg: ModelConfig, input_ids: torch.Tensor,
+          group: Group = None) -> torch.Tensor:
+    """Token embeddings [..., H].  Vocab-parallel under a model group: each
+    rank looks up the ids in its own rows, writes zeros for the others, and
+    the ranks' rows are summed."""
+    table = params["embed"]
+    ids = input_ids.long()
+    if group is None:
+        return table[ids].to(cfg.dtype)
+    rows = table.shape[0]
+    local = ids - group_rank(group) * rows
+    mine = (local >= 0) & (local < rows)
+    x = torch.where(mine[..., None], table[local.clamp(0, rows - 1)], 0).to(cfg.dtype)
+    return reduce_sum(x, group)
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -283,12 +320,14 @@ def forward(
     rope: Tuple[torch.Tensor, torch.Tensor],
     *,
     write_mask: Optional[torch.Tensor] = None,  # [B, T] bool: write KV for token?
+    group: Group = None,  # the model group (tensor parallelism)
 ) -> Tuple[torch.Tensor, KVCache]:
     """One forward over T tokens per sequence against the paged cache.
 
     Serves prefill (positions 0..P-1), AR decode (T=1, position S-1) and
     Jacobi blocks (T=L, positions S-1..S+L-2).  Returns (hidden [B, T, H],
-    kv_cache); the cache tensors are written in place.
+    kv_cache); the cache tensors are written in place.  Under a model group
+    the cache holds this rank's KV heads.
     """
     B, T = input_ids.shape
     page = kv_cache.page_size
@@ -298,7 +337,7 @@ def forward(
     positions = positions.to(torch.int32).contiguous()
     pos_l = positions.long()
 
-    x = params["embed"][input_ids.long()].to(cfg.dtype)  # [B, T, H]
+    x = embed(params, cfg, input_ids, group)  # [B, T, H]
     cos_t, sin_t = rope
     cos, sin = cos_t[pos_l], sin_t[pos_l]  # [B, T, half] float32
 
@@ -309,7 +348,7 @@ def forward(
     if write_mask is not None:
         slots = torch.where(write_mask, slots, num_slots)
     slots = torch.where(page_idx < 0, num_slots, slots)
-    plan = write_plan(slots, num_slots, cfg.num_kv_heads)  # one plan for every layer
+    plan = write_plan(slots, num_slots, kv_cache.k.shape[1])  # one plan for every layer
 
     lp = params["layers"]
     scale = 1.0 / math.sqrt(cfg.head_dim)
@@ -317,7 +356,7 @@ def forward(
     h = x
     for i in range(cfg.num_layers):
         w = _layer_weights(lp, i)
-        q, kk, vv = _layer_qkv(cfg, w, h, cos, sin)
+        q, kk, vv = _layer_qkv(cfg, w, h, cos, sin, group)
         k_l, v_l = kv_cache.k[i], kv_cache.v[i]
         ks_l = vs_l = None
         if scaled:
@@ -329,17 +368,19 @@ def forward(
             q, k_l, v_l, block_tables, cache_lens, positions, scale, page_size=page,
             k_scale_l=ks_l, v_scale_l=vs_l,
         )  # [B, T, NH, D]
-        h = _layer_out(cfg, w, h, o)
+        h = _layer_out(cfg, w, h, o, group)
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     return h, kv_cache
 
 
-def _layer_qkv(cfg: ModelConfig, w, h, cos, sin):
+def _layer_qkv(cfg: ModelConfig, w, h, cos, sin, group: Group = None):
     """Pre-norm, QKV projection (+bias / qk-norm) and RoPE of one layer:
-    (q [B,T,NH,D], k [B,T,KH,D], v [B,T,KH,D])."""
+    (q [B,T,NH,D], k [B,T,KH,D], v [B,T,KH,D]), with this rank's heads
+    under a model group (column-parallel: NH and KH are read off the
+    weights' widths)."""
     B, T, _ = h.shape
     a8 = cfg.act_quant
-    hn = rms_norm(h, w["ln1"], cfg.rms_norm_eps)
+    hn = copy_in(rms_norm(h, w["ln1"], cfg.rms_norm_eps), group)
     q = mm(hn, w["wq"], a8)
     kk = mm(hn, w["wk"], a8)
     vv = mm(hn, w["wv"], a8)
@@ -347,24 +388,26 @@ def _layer_qkv(cfg: ModelConfig, w, h, cos, sin):
         q = q + w["bq"]
         kk = kk + w["bk"]
         vv = vv + w["bv"]
-    q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
-    kk = kk.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    vv = vv.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    q = q.reshape(B, T, -1, cfg.head_dim)
+    kk = kk.reshape(B, T, -1, cfg.head_dim)
+    vv = vv.reshape(B, T, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, w["q_norm"], cfg.rms_norm_eps)
         kk = rms_norm(kk, w["k_norm"], cfg.rms_norm_eps)
     return apply_rope(q, cos, sin), apply_rope(kk, cos, sin), vv
 
 
-def _layer_out(cfg: ModelConfig, w, h, o):
-    """Output projection of the attention result `o` and the MLP, both residual."""
+def _layer_out(cfg: ModelConfig, w, h, o, group: Group = None):
+    """Output projection of the attention result `o` and the MLP, both
+    residual.  Under a model group `wo` and `w_down` are row-parallel: `mm`
+    sums the ranks' partial products before the residual add."""
     B, T, _ = h.shape
     a8 = cfg.act_quant
-    h = h + mm(o.reshape(B, T, cfg.q_size), w["wo"], a8)
-    hn = rms_norm(h, w["ln2"], cfg.rms_norm_eps)
+    h = h + mm(o.reshape(B, T, -1), w["wo"], a8, group)
+    hn = copy_in(rms_norm(h, w["ln2"], cfg.rms_norm_eps), group)
     g = mm(hn, w["w_gate"], a8)
     u = mm(hn, w["w_up"], a8)
-    return h + mm(F.silu(g.to(acc_dtype(cfg.dtype))).to(u.dtype) * u, w["w_down"], a8)
+    return h + mm(F.silu(g.to(acc_dtype(cfg.dtype))).to(u.dtype) * u, w["w_down"], a8, group)
 
 
 def forward_spec(
@@ -377,18 +420,21 @@ def forward_spec(
     cache_lens: torch.Tensor,  # [B] committed KV length
     intra_mask: torch.Tensor,  # [B, T, T] bool: visibility within the block
     rope: Tuple[torch.Tensor, torch.Tensor],
+    *,
+    group: Group = None,  # the model group (tensor parallelism)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Speculative forward: reads the committed paged KV, writes NOTHING.
 
     Returns (hidden [B, T, H], k_new [layers, B, T, KH, D], v_new [...]), so
-    the caller can scatter only the verified winner's K/V into the cache.
+    the caller can scatter only the verified winner's K/V into the cache
+    (KH = this rank's KV heads under a model group).
     """
     block_tables = block_tables.to(torch.int32).contiguous()
     cache_lens = cache_lens.to(torch.int32).contiguous()
     intra_mask = intra_mask.contiguous()
     pos_l = positions.long().clamp(max=cfg.max_position - 1)
 
-    h = params["embed"][input_ids.long()].to(cfg.dtype)
+    h = embed(params, cfg, input_ids, group)
     cos_t, sin_t = rope
     cos, sin = cos_t[pos_l], sin_t[pos_l]
     lp = params["layers"]
@@ -397,7 +443,7 @@ def forward_spec(
     k_new, v_new = [], []
     for i in range(cfg.num_layers):
         w = _layer_weights(lp, i)
-        q, kk, vv = _layer_qkv(cfg, w, h, cos, sin)
+        q, kk, vv = _layer_qkv(cfg, w, h, cos, sin, group)
         kk_attn, vv_attn, ks_l, vs_l = kk, vv, None, None
         if scaled:
             # fake-quantize the in-flight block so that speculative
@@ -410,7 +456,7 @@ def forward_spec(
             q, kv_cache.k[i], kv_cache.v[i], block_tables, cache_lens, kk_attn, vv_attn,
             intra_mask, scale, page_size=kv_cache.page_size, k_scale_l=ks_l, v_scale_l=vs_l,
         )
-        h = _layer_out(cfg, w, h, o)
+        h = _layer_out(cfg, w, h, o, group)
         k_new.append(kk)
         v_new.append(vv)
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
@@ -426,6 +472,7 @@ def forward_dense(
     attn_mask: Optional[torch.Tensor] = None,  # [B|1, T, T] bool, True = visible
     splash_spec: Optional[tuple] = None,  # static layout -> block-sparse kernels
     remat: bool = False,  # recompute each layer's activations in the backward
+    group: Group = None,  # the model group (tensor parallelism)
 ) -> torch.Tensor:
     """Training-path forward: no KV cache, differentiable.  Returns [B, T, H].
 
@@ -434,11 +481,13 @@ def forward_dense(
     variant, window_size) the mask is instead realised inside
     `ops/train_attention.train_attention` (B must be 1): the hand-written
     kernels on CUDA tensors, never an [T, T] mask.  A per-layer weight may be a
-    stacked tensor or a list of per-layer tensors.
+    stacked tensor or a list of per-layer tensors.  Under a model group the
+    collectives carry gradients as Megatron's layers do
+    (`parallel/collectives.reduce_sum` / `copy_in`).
     """
     B, T = input_ids.shape
     pos_l = positions.long()
-    x = params["embed"][input_ids.long()].to(cfg.dtype)
+    x = embed(params, cfg, input_ids, group)
     cos_t, sin_t = rope
     cos, sin = cos_t[pos_l], sin_t[pos_l]
     scale = 1.0 / math.sqrt(cfg.head_dim)
@@ -451,14 +500,14 @@ def forward_dense(
         attn_mask = (idx[:, None] >= idx[None, :])[None]  # [1, T, T] causal
 
     def layer(h, w):
-        q, kk, vv = _layer_qkv(cfg, w, h, cos, sin)
+        q, kk, vv = _layer_qkv(cfg, w, h, cos, sin, group)
         if splash_spec is not None:
             o = train_attention(q[0], kk[0], vv[0], prompt_len=p_len, T_pairs=t_pairs,
                                 seq_len=seq_len, N=n_blk, variant=variant,
                                 window_size=window)[None]
         else:
             o = masked_attention(q, kk, vv, attn_mask, scale)
-        return _layer_out(cfg, w, h, o)
+        return _layer_out(cfg, w, h, o, group)
 
     lp = params["layers"]
     h = x
@@ -469,10 +518,15 @@ def forward_dense(
 
 
 def _head(params: Dict[str, Any], cfg: ModelConfig):
-    """The LM head as [H, V] (a transposed view when tied), or its int8 dict."""
+    """The LM head as [H, V] (a transposed view when tied), or its int8 dict;
+    this rank's vocab columns under a model group."""
     if cfg.tie_word_embeddings:
         return params["embed"].T
     return params["lm_head"]
+
+
+def _head_width(w) -> int:
+    return (w["q"] if isinstance(w, dict) else w).shape[-1]
 
 
 def _head_logits(cfg: ModelConfig, wq, ws, hidden, hq, acc) -> torch.Tensor:
@@ -484,46 +538,77 @@ def _head_logits(cfg: ModelConfig, wq, ws, hidden, hq, acc) -> torch.Tensor:
     return _mm_acc(hidden, wq.to(cfg.dtype), acc) * ws.to(acc)[..., 0, :]
 
 
-def logits_at(params: Dict[str, Any], cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """LM head over an (already gathered) hidden slice; float32+ logits."""
+def _cols_logits(cfg: ModelConfig, w, hidden, hq, acc, cols=slice(None)) -> torch.Tensor:
+    """Logits of the head's columns `cols` (plain or int8 head)."""
+    if isinstance(w, dict):
+        return _head_logits(cfg, w["q"][:, cols], w["s"][:, cols], hidden, hq, acc)
+    return _mm_acc(hidden, w[:, cols].to(cfg.dtype), acc)
+
+
+def _act_q(w, cfg: ModelConfig, hidden):
+    """The head input's int8 activations under W8A8 (the head's input is
+    replicated, so no reduction over the model group)."""
+    return act_quantize(hidden) if (isinstance(w, dict) and cfg.act_quant) else None
+
+
+def _chunks(V: int, vocab_chunk: int):
+    """(chunk index, first column, columns) of the head's vocab chunks; the
+    last chunk is clamped to overlap the one before."""
+    for c in range((V + vocab_chunk - 1) // vocab_chunk):
+        start = min(c * vocab_chunk, V - vocab_chunk)
+        yield c, start, slice(start, start + vocab_chunk)
+
+
+def logits_at(params: Dict[str, Any], cfg: ModelConfig, hidden: torch.Tensor,
+              group: Group = None) -> torch.Tensor:
+    """LM head over an (already gathered) hidden slice; float32+ logits.
+    Under a model group the ranks' vocab slices are gathered in vocab order,
+    so every rank returns the same [..., V]."""
     w = _head(params, cfg)
     acc = acc_dtype(cfg.dtype)
-    if isinstance(w, dict):  # int8 lm_head, weight-only or W8A8
-        hq = act_quantize(hidden) if cfg.act_quant else None
-        return _head_logits(cfg, w["q"], w["s"], hidden, hq, acc)
-    return _mm_acc(hidden, w.to(cfg.dtype), acc)
+    return gather_last(_cols_logits(cfg, w, hidden, _act_q(w, cfg, hidden), acc), group)
 
 
 def greedy_tokens(
-    params: Dict[str, Any], cfg: ModelConfig, hidden: torch.Tensor, *, vocab_chunk: int = 32768
+    params: Dict[str, Any], cfg: ModelConfig, hidden: torch.Tensor, *, vocab_chunk: int = 32768,
+    group: Group = None,
 ) -> torch.Tensor:
     """argmax(lm_head(hidden)) over vocab CHUNKS, never materialising the full
     [..., V] logits.  Same rules as the JAX version: the last chunk is clamped
     to overlap the previous one, argmax takes the first maximum inside a
-    chunk, and a later chunk wins only with a strictly greater maximum."""
+    chunk, and a later chunk wins only with a strictly greater maximum.
+
+    Under a model group each rank takes the (max, first arg-max) of its own
+    columns, and the ranks' pairs are reduced to the largest value, then the
+    smallest global index: a logit does not depend on how the columns are
+    split, so this is the first maximum over the whole vocab, as above."""
     w = _head(params, cfg)
-    V = cfg.vocab_size
-    if V <= vocab_chunk:
-        return torch.argmax(logits_at(params, cfg, hidden), dim=-1).to(torch.int32)
+    V = _head_width(w)
     acc = acc_dtype(cfg.dtype)
-    n_chunks = (V + vocab_chunk - 1) // vocab_chunk
-    quantized = isinstance(w, dict)
-    hq = act_quantize(hidden) if (quantized and cfg.act_quant) else None
-    best = torch.full(hidden.shape[:-1], float("-inf"), dtype=acc, device=hidden.device)
-    best_idx = torch.zeros(hidden.shape[:-1], dtype=torch.int32, device=hidden.device)
-    for c in range(n_chunks):
-        start = min(c * vocab_chunk, V - vocab_chunk)
-        cols = slice(start, start + vocab_chunk)
-        if quantized:
-            logits = _head_logits(cfg, w["q"][:, cols], w["s"][:, cols], hidden, hq, acc)
-        else:
-            logits = _mm_acc(hidden, w[:, cols].to(cfg.dtype), acc)
-        cmax = torch.amax(logits, dim=-1)
-        carg = torch.argmax(logits, dim=-1)  # first maximum, as jnp.argmax
-        take = cmax > best
-        best = torch.where(take, cmax, best)
-        best_idx = torch.where(take, (carg + start).to(torch.int32), best_idx)
-    return best_idx
+    hq = _act_q(w, cfg, hidden)
+    if V <= vocab_chunk:
+        logits = _cols_logits(cfg, w, hidden, hq, acc)
+        best_idx = torch.argmax(logits, dim=-1).to(torch.int32)
+        if group is None:
+            return best_idx
+        best = torch.amax(logits, dim=-1)
+    else:
+        best = torch.full(hidden.shape[:-1], float("-inf"), dtype=acc, device=hidden.device)
+        best_idx = torch.zeros(hidden.shape[:-1], dtype=torch.int32, device=hidden.device)
+        for _, start, cols in _chunks(V, vocab_chunk):
+            logits = _cols_logits(cfg, w, hidden, hq, acc, cols)
+            cmax = torch.amax(logits, dim=-1)
+            carg = torch.argmax(logits, dim=-1)  # first maximum, as jnp.argmax
+            take = cmax > best
+            best = torch.where(take, cmax, best)
+            best_idx = torch.where(take, (carg + start).to(torch.int32), best_idx)
+        if group is None:
+            return best_idx
+    # [ranks, 2, ...]: each rank's maximum and its global index (exact in acc)
+    parts = gather_stack(torch.stack([best, (best_idx + group_rank(group) * V).to(acc)]), group)
+    vals, idxs = parts[:, 0], parts[:, 1]
+    first = torch.where(vals == vals.amax(0), idxs, float("inf")).amin(0)
+    return first.to(torch.int32)
 
 
 def chunked_token_logprob(
@@ -534,44 +619,53 @@ def chunked_token_logprob(
     temperature: torch.Tensor,  # [...] > 0 (broadcast)
     *,
     vocab_chunk: int = 32768,
+    group: Group = None,
 ) -> torch.Tensor:
     """log p(token | hidden) at `temperature` without materialising the full
     [..., V] logits: an online logsumexp over vocab chunks plus the token's
     logit (the rejection-sampling verify needs only p(drafted token)).  The
     last chunk is clamped to overlap the one before; its overlap columns and
     columns past V are -inf there, and a token's logit is taken from the
-    chunk that owns it before clamping.  Sums are in `acc_dtype`."""
+    chunk that owns it before clamping.  Sums are in `acc_dtype`.
+
+    Under a model group each rank keeps the online (max, sum) of its own
+    columns, and the token's logit comes from the rank that owns it; the
+    ranks' triples are merged (O(rows) bytes)."""
     w = _head(params, cfg)
-    V = cfg.vocab_size
+    V = _head_width(w)
     acc = acc_dtype(cfg.dtype)
     t = temperature.to(acc).clamp(min=1e-6)
-    tok = tokens.long()
+    tok = tokens.long() - group_rank(group) * V  # this rank's column of the token
+    hq = _act_q(w, cfg, hidden)
     if V <= vocab_chunk:
-        logits = logits_at(params, cfg, hidden) / t[..., None]
-        lx = torch.gather(logits, -1, tok[..., None])[..., 0]
-        return lx - torch.logsumexp(logits, dim=-1)
-    n_chunks = (V + vocab_chunk - 1) // vocab_chunk
-    quantized = isinstance(w, dict)
-    hq = act_quantize(hidden) if (quantized and cfg.act_quant) else None
-    shape, dev = hidden.shape[:-1], hidden.device
-    m = torch.full(shape, float("-inf"), dtype=acc, device=dev)
-    s = torch.zeros(shape, dtype=acc, device=dev)
-    lx = torch.full(shape, float("-inf"), dtype=acc, device=dev)
-    col0 = torch.arange(vocab_chunk, device=dev)
-    for c in range(n_chunks):
-        start = min(c * vocab_chunk, V - vocab_chunk)
-        cols = slice(start, start + vocab_chunk)
-        if quantized:
-            logits = _head_logits(cfg, w["q"][:, cols], w["s"][:, cols], hidden, hq, acc)
-        else:
-            logits = _mm_acc(hidden, w[:, cols].to(cfg.dtype), acc)
-        logits = logits / t[..., None]
-        col = start + col0
-        logits = logits.masked_fill(~((col >= c * vocab_chunk) & (col < V)), float("-inf"))
-        m_new = torch.maximum(m, logits.amax(dim=-1))
-        s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[..., None]).sum(-1)
-        m = m_new
-        owned = (tok >= c * vocab_chunk) & (tok < (c + 1) * vocab_chunk) & (tok < V)
-        val = torch.gather(logits, -1, (tok - start).clamp(0, vocab_chunk - 1)[..., None])[..., 0]
-        lx = torch.where(owned, val, lx)
+        logits = _cols_logits(cfg, w, hidden, hq, acc) / t[..., None]
+        if group is None:
+            lx = torch.gather(logits, -1, tok[..., None])[..., 0]
+            return lx - torch.logsumexp(logits, dim=-1)
+        m = logits.amax(dim=-1)
+        s = torch.exp(logits - m[..., None]).sum(-1)
+        val = torch.gather(logits, -1, tok.clamp(0, V - 1)[..., None])[..., 0]
+        lx = torch.where((tok >= 0) & (tok < V), val, float("-inf"))
+    else:
+        shape, dev = hidden.shape[:-1], hidden.device
+        m = torch.full(shape, float("-inf"), dtype=acc, device=dev)
+        s = torch.zeros(shape, dtype=acc, device=dev)
+        lx = torch.full(shape, float("-inf"), dtype=acc, device=dev)
+        col0 = torch.arange(vocab_chunk, device=dev)
+        for c, start, cols in _chunks(V, vocab_chunk):
+            logits = _cols_logits(cfg, w, hidden, hq, acc, cols) / t[..., None]
+            col = start + col0
+            logits = logits.masked_fill(~((col >= c * vocab_chunk) & (col < V)), float("-inf"))
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[..., None]).sum(-1)
+            m = m_new
+            owned = (tok >= c * vocab_chunk) & (tok < (c + 1) * vocab_chunk) & (tok < V)
+            col_of_tok = (tok - start).clamp(0, vocab_chunk - 1)
+            val = torch.gather(logits, -1, col_of_tok[..., None])[..., 0]
+            lx = torch.where(owned, val, lx)
+    if group is not None:
+        parts = gather_stack(torch.stack([m, s, lx]), group)  # [ranks, 3, ...]
+        m = parts[:, 0].amax(0)
+        s = (parts[:, 1] * torch.exp(parts[:, 0] - m)).sum(0)
+        lx = parts[:, 2].amax(0)
     return lx - (m + torch.log(s.clamp(min=1e-30)))

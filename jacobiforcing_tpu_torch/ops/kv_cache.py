@@ -19,7 +19,9 @@ masked, or on a -1 page) goes to a trash row.  `alloc_kv_cache` lays each
 layer out as its `num_kv_heads * num_slots` slot rows followed by that trash
 row, so a layer's `[num_kv_heads, num_slots, head_dim]` view stays contiguous
 (what the kernels take, with the pool's own `num_slots`), no block table can
-name the trash row, and nothing reads it.  A fixed-shape write needs no
+name the trash row, and nothing reads it.  Under tensor parallelism a rank's
+pool, its trash rows and its scale planes hold that rank's
+`num_kv_heads / tp` heads; a write plan takes the pool's own head count.  A fixed-shape write needs no
 device-to-host read, so a forward can be captured in a CUDA graph.
 """
 

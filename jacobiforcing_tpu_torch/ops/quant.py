@@ -20,6 +20,14 @@ one scale per output channel.  `mm(x, w)` serves plain and quantized weights:
 Greedy AR == Jacobi holds inside either mode because both run the same
 quantized program.
 
+Row-parallel layers (`group`, the model group of tensor parallelism) see
+their input split along K.  Their partial products are summed over the
+group before the scales are applied, as XLA sums the partial int32 dot
+products of the JAX package's sharded W8A8 layers; and the per-token
+activation scale comes from the amax over the whole hidden row, a maximum
+over the group, as GSPMD computes it there.  A per-rank scale would give
+other int8 activations and so another token stream.
+
 One constant is written differently from the JAX source on purpose.  There
 the activation scale is `amax / 127.0` inside jitted code, and XLA compiles a
 division by a constant into a multiplication by its float32 reciprocal; the
@@ -36,6 +44,7 @@ from typing import Any, Dict, Union
 import numpy as np
 import torch
 
+from jacobiforcing_tpu_torch.parallel.collectives import Group, reduce_max, reduce_sum
 from jacobiforcing_tpu_torch.utils.device import resolve_device
 
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -135,11 +144,13 @@ def int_mm_layout(params: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def act_quantize(x: torch.Tensor):
+def act_quantize(x: torch.Tensor, group: Group = None):
     """Per-row symmetric int8 activation quantization: (int8 [..., K],
-    float32 scale [..., 1])."""
+    float32 scale [..., 1]).  Under a model group `x` is this rank's slice of
+    the row and the amax is taken over the whole row."""
     xf = x.to(torch.float32)
-    sx = (xf.abs().amax(dim=-1, keepdim=True) * INV_127).clamp(min=1e-8)
+    amax = reduce_max(xf.abs().amax(dim=-1, keepdim=True), group)
+    sx = (amax * INV_127).clamp(min=1e-8)
     return torch.round(xf / sx).to(torch.int8), sx
 
 
@@ -156,15 +167,16 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return y.reshape(*xq.shape[:-1], wq.shape[-1])
 
 
-def mm(x: torch.Tensor, w, a8: bool = False) -> torch.Tensor:
-    """x @ w for plain or quantized weights (see the module docstring)."""
+def mm(x: torch.Tensor, w, a8: bool = False, group: Group = None) -> torch.Tensor:
+    """x @ w for plain or quantized weights (see the module docstring); with
+    `group`, a row-parallel layer's product summed over the model group."""
     if isinstance(w, dict):
         if a8:
-            xq, sx = act_quantize(x)
-            y = int8_matmul(xq, w["q"])
+            xq, sx = act_quantize(x, group)
+            y = reduce_sum(int8_matmul(xq, w["q"]), group)
             return (y.to(torch.float32) * sx * w["s"].to(torch.float32)[..., 0, :]).to(x.dtype)
-        return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)[..., 0, :]
-    return x @ w
+        return reduce_sum(x @ w["q"].to(x.dtype), group) * w["s"].to(x.dtype)[..., 0, :]
+    return reduce_sum(x @ w, group)
 
 
 def is_quantized(w) -> bool:

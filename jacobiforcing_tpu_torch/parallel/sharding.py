@@ -1,0 +1,146 @@
+"""The Megatron layout of the parameters, the KV pool and the decode state
+(PyTorch port of `jacobiforcing_tpu/parallel/sharding.py`).
+
+The spec table is the JAX package's, name by name: a spec is a tuple with
+one entry per array axis, the mesh axis it is split over or None.
+
+  * qkv / gate / up projections: column-parallel, the output axis over
+    "model" (the reference's ColumnParallelLinear / QKVParallelLinear);
+  * o_proj / down_proj: row-parallel, the input axis over "model"; the
+    forward all-reduces the partial products (`parallel/collectives`);
+  * embeddings + lm_head: vocab-parallel over "model";
+  * KV pool: KV heads over "model", so attention is local to each rank;
+  * batch axes of the decode state over "data".
+
+`fsdp=True` (ZeRO-3, the reference's ds_config.json) also splits the hidden
+axis of the large layer stacks over "data"; the serving engine does not use
+it.  `shard_params` cuts a full parameter dict to this rank's share, on the
+host (numpy arrays, CPU tensors) or wherever the tensors are, so a
+checkpoint can be sliced before anything reaches the card.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from jacobiforcing_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
+
+Spec = Tuple[Any, ...]
+
+
+def P(*axes) -> Spec:
+    return tuple(axes)
+
+
+def param_specs(cfg, *, fsdp: bool = False) -> Dict[str, Any]:
+    """Spec tree matching the `init_params` structure.
+
+    With fsdp=True the large 3D layer stacks additionally split their
+    hidden-size axis over "data" (the ZeRO-3 / FSDP analog for training).
+    """
+    d = DATA_AXIS if fsdp else None
+    m = MODEL_AXIS
+    layers = {
+        "ln1": P(None, None),
+        "ln2": P(None, None),
+        "wq": P(None, d, m),
+        "wk": P(None, d, m),
+        "wv": P(None, d, m),
+        "wo": P(None, m, d),
+        "w_gate": P(None, d, m),
+        "w_up": P(None, d, m),
+        "w_down": P(None, m, d),
+    }
+    if cfg.qkv_bias:
+        layers["bq"] = P(None, m)
+        layers["bk"] = P(None, m)
+        layers["bv"] = P(None, m)
+    if cfg.qk_norm:
+        layers["q_norm"] = P(None, None)
+        layers["k_norm"] = P(None, None)
+    specs = {
+        "embed": P(m, d),
+        "layers": layers,
+        "final_norm": P(None),
+    }
+    if not cfg.tie_word_embeddings:
+        specs["lm_head"] = P(d, m)
+    return specs
+
+
+def kv_cache_spec() -> Dict[str, Spec]:
+    """KV pages split over KV heads on the model axis: k/v [layers, kv_heads,
+    slots, head_dim]; the per-row dequant scales [layers, kv_heads, slots]
+    of a narrow cache follow the heads."""
+    return {
+        "k": P(None, MODEL_AXIS, None, None), "v": P(None, MODEL_AXIS, None, None),
+        "k_scale": P(None, MODEL_AXIS, None), "v_scale": P(None, MODEL_AXIS, None),
+    }
+
+
+def decode_state_specs() -> Dict[str, Spec]:
+    """Batch-major decode state splits over "data"."""
+    return {
+        "tokens": P(DATA_AXIS, None),
+        "cur_len": P(DATA_AXIS),
+        "draft": P(DATA_AXIS, None),
+        "block_tables": P(DATA_AXIS, None),
+    }
+
+
+def _scale_spec(spec: Spec, ndim: int) -> Spec:
+    """The spec of a quantized weight's per-output-channel scale [..., 1,
+    out]: the weight's output axis, nothing on its input axis."""
+    parts = list(spec) + [None] * (ndim - len(spec))
+    return P(*(parts[:-2] + [None, parts[-1]]))
+
+
+def shard_array(x, spec: Spec, mesh: Mesh):
+    """This rank's block of `x` (a numpy array or a tensor) under `spec`.
+    A tensor's block is a copy of its own, so the full tensor can be freed;
+    raises ValueError where an axis does not divide."""
+    idx = []
+    for axis, name in enumerate(spec):
+        if name is None:
+            idx.append(slice(None))
+            continue
+        n, i = mesh.shape[name], mesh.index(name)
+        size = x.shape[axis]
+        if size % n:
+            raise ValueError(f"axis {axis} of size {size} does not split over {n} "
+                             f"ranks of the {name!r} axis")
+        idx.append(slice(i * (size // n), (i + 1) * (size // n)))
+    block = x[tuple(idx)]
+    if isinstance(block, torch.Tensor):
+        return block.clone()
+    return np.ascontiguousarray(block)
+
+
+def shard_params(params: Dict[str, Any], cfg, mesh: Mesh, *, fsdp: bool = False):
+    """Cut the full parameter dict to this rank's share.
+
+    A quantized weight ({"q": int8, "s": scale}, `ops/quant.py`) is cut leaf
+    by leaf: `q` follows the weight's spec, the per-output-channel scale
+    follows the spec's output axis.  Re-lay int8 weights for the card's
+    GEMM (`ops/quant.int_mm_layout`) after this, never before.
+    """
+
+    def cut(x, spec):
+        if isinstance(x, dict) and "q" in x:
+            return {"q": shard_array(x["q"], spec, mesh),
+                    "s": shard_array(x["s"], _scale_spec(spec, x["q"].ndim), mesh)}
+        return shard_array(x, spec, mesh)
+
+    wk = params["layers"]["wk"]
+    width = (wk["q"] if isinstance(wk, dict) else wk).shape[-1]
+    if width != cfg.kv_size:  # a share cut again would still divide
+        raise ValueError(f"shard_params takes the full weights: wk has {width} output "
+                         f"columns, the model {cfg.kv_size}")
+    specs = param_specs(cfg, fsdp=fsdp)
+    out = {k: cut(v, specs[k]) for k, v in params.items() if k != "layers"}
+    out["layers"] = {k: cut(v, specs["layers"][k]) for k, v in params["layers"].items()}
+    return out
+

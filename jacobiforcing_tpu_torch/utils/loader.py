@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from jacobiforcing_tpu_torch.models.qwen import ModelConfig
+from jacobiforcing_tpu_torch.parallel.sharding import shard_params
 from jacobiforcing_tpu_torch.utils.device import resolve_device
 
 _ST_DTYPES = {
@@ -139,9 +140,13 @@ def save_checkpoint(path: str, cfg: ModelConfig, params: Dict[str, Any]) -> None
 
 
 def load_checkpoint(
-    path: str, dtype=torch.bfloat16, device="cuda"
+    path: str, dtype=torch.bfloat16, device="cuda", mesh=None
 ) -> Tuple[ModelConfig, Dict[str, Any]]:
-    """Load config.json + *.safetensors from an HF checkpoint dir onto `device`."""
+    """Load config.json + *.safetensors from an HF checkpoint dir onto `device`.
+
+    With a `mesh` (`parallel/mesh.py`) each tensor is cut to this rank's
+    share (`parallel/sharding.shard_params`) on the host and only the share
+    moves to `device`: the card never holds the full model."""
     dev = resolve_device(device)
     with open(os.path.join(path, "config.json")) as f:
         hf_cfg = json.load(f)
@@ -153,7 +158,10 @@ def load_checkpoint(
     tensors: Dict[str, torch.Tensor] = {}
     for fname in files:
         tensors.update(read_safetensors(os.path.join(path, fname)))
-    return cfg, assemble_params(cfg, tensors, dtype, dev)
+    if mesh is None:
+        return cfg, assemble_params(cfg, tensors, dtype, dev)
+    host = assemble_params(cfg, tensors, dtype, torch.device("cpu"))
+    return cfg, move_params(shard_params(host, cfg, mesh), dev)
 
 
 def assemble_params(
@@ -215,6 +223,12 @@ def _map_params(tree, leaf, quantized_leaf):
             return quantized_leaf(tree)
         return {k: _map_params(v, leaf, quantized_leaf) for k, v in tree.items()}
     return leaf(tree)
+
+
+def move_params(params: Dict[str, Any], device) -> Dict[str, Any]:
+    """The same parameters on `device` (quantized leaves keep their dtypes)."""
+    return _map_params(params, lambda t: t.to(device),
+                       lambda w: {"q": w["q"].to(device), "s": w["s"].to(device)})
 
 
 def params_from_numpy(jax_params: Dict[str, Any], dtype=None, device="cpu") -> Dict[str, Any]:

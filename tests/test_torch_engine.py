@@ -78,10 +78,24 @@ def test_bench_generate_demo_anchor(port_llm, tmp_path):
     assert 4.55 <= agg["aggregate_tokens_per_forward"] <= 4.85
 
 
-@pytest.mark.parametrize("kw", [dict(tensor_parallel_size=2), dict(data_parallel_size=2)])
+@pytest.mark.parametrize("kw", [dict(data_parallel_size=2)])
 def test_unported_config_options_raise(kw):
     with pytest.raises(NotImplementedError):
         Config(**kw)
+
+
+def test_tensor_parallel_needs_a_world_with_a_model_group():
+    """tensor_parallel_size=2 is a valid configuration; an engine outside a
+    torch.distributed world of that size has no model group to run it on and
+    raises ValueError."""
+    from jacobiforcing_tpu_torch.engine.llm_engine import LLMEngine
+    from jacobiforcing_tpu_torch.models.qwen import ModelConfig, init_params
+
+    cfg = Config(tensor_parallel_size=2, kvcache_page_size=16, max_model_len=64)
+    mc = ModelConfig.tiny()
+    with pytest.raises(ValueError, match="tensor_parallel_size=2"):
+        LLMEngine(cfg, model_cfg=mc, params=init_params(mc, 0, "cpu"), num_kv_pages=8,
+                  device="cpu")
 
 
 @pytest.mark.parametrize("strategy,temperature", [

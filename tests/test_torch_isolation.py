@@ -55,6 +55,15 @@ def test_the_host_path_modules_are_covered():
         assert f"jacobiforcing_tpu_torch/{mod}.py" in names
 
 
+def test_the_parallel_modules_are_covered():
+    """Tensor-parallel serving's modules (the mesh, the sharding table, which
+    keeps its own copy of the JAX package's jax-free spec table, the
+    collectives and the world's set-up) are among the files checked above."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ("__init__", "mesh", "sharding", "multihost", "collectives"):
+        assert f"jacobiforcing_tpu_torch/parallel/{mod}.py" in names
+
+
 def test_port_process_never_loads_jax():
     code = """
 import sys, torch
@@ -73,6 +82,13 @@ from jacobiforcing_tpu_torch.ops import int4_matmul, int4_matmul_cuda, quant
 from jacobiforcing_tpu_torch.apps import bench_engine
 from jacobiforcing_tpu_torch.engine import graphs
 from jacobiforcing_tpu_torch.utils import profiling
+from jacobiforcing_tpu_torch.parallel import make_mesh, param_specs, shard_params
+from jacobiforcing_tpu_torch.parallel.multihost import initialize_multihost, is_primary
+initialize_multihost(backend="gloo")
+assert is_primary()
+mesh = make_mesh(tensor_parallel_size=1)
+assert shard_params(params, cfg, mesh)["embed"].shape == params["embed"].shape
+assert param_specs(cfg)["layers"]["wo"] == (None, "model", None)
 qllm = LLM(device="cpu", model_cfg=cfg, params=quant.init_quantized_params(cfg, 0, "cpu"),
            num_kv_pages=8, kvcache_page_size=16, max_model_len=64, quantization="w8a8",
            kv_cache_dtype="fp8")
