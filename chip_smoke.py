@@ -5,6 +5,7 @@
 
     python3 chip_smoke.py kernel,train_kernel   # the kernels against their plain versions only
     python3 chip_smoke.py int4                  # the int4 kernels and their path alone
+    python3 chip_smoke.py train_mesh            # DP / fsdp and TP training, two ranks
 
     # the same phases from a parent tree (P) and this one (C) in turns, P C C P,
     # on one card: training kernel times, steps/s and step profiles side by side
@@ -127,6 +128,29 @@ result line):
      three optimizer steps, then two more under torch.profiler: steps/s,
      tokens/s, peak memory, launches of each kernel per step, device idle
      share of one step, finite losses and gradient norm.
+ 11. `train_mesh`: training over a (data, model) mesh, two ranks spawned as
+     processes of this script (`train-rank`) sharing the card over gloo.
+     (c) kernel 3 at the local heads of TP 2 (Qwen2.5-7B's 14 query, 2 KV
+     heads, D 128, and the demo model's 2 query heads of 1 KV head, D 64),
+     f32 and bf16 against the plain version, and its times at L 4096 beside
+     the bound, the plain version and SDPA.  (a) the demo checkpoint's
+     weights in f32 on the `train` phase's copy-task rows, 3 steps through
+     `train()` at (dp, tp) = (2, 1) fsdp dense with global batch 2 and at
+     (1, 2) splash + remat, each against one process on a (1, 1) mesh:
+     losses, the AdamW moments and the weights' change of the checkpoints
+     (written by rank (0, 0) from the gathered blocks), within the stated
+     tolerances; kernel 3's launches per rank at (1, 2), no plain attention
+     on CUDA; beside them the same runs in float64 on the host.  The same
+     runs with a fault planted in the two ranks (the update not written
+     back; one leaf's gradient not summed over the data ranks) must fail
+     those gates.  `[train-exact]`: the (1, 2) configuration in one process
+     with kernel 3 and with the plain attention, against float64.  (b)
+     Qwen2.5-7B widths, all 28 layers, bf16, remat: (2, 1) fsdp dense, one
+     packed row of 2048 tokens per rank, and (1, 2) splash (kernel 3 on 2 KV
+     heads per rank), one row of 4096 tokens: 3 steps each with finite
+     losses and gradient norm, the step times (gloo-bound), each rank's peak
+     memory and kernel 3's launches; with two cards or more again over NCCL,
+     one rank per card.
 
 The line before the last is a JSON object with the kernels' numbers; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA device, or outside the
@@ -175,6 +199,10 @@ KERNELS = {
     # tensor parallelism at TP 2: the same kernels on each rank's 2 KV heads
     "paged_attention_kh2": _PAGED,
     "spec_attention_kh2": _SPEC,
+    # tensor-parallel training at TP 2: kernel 3 on each rank's KV heads
+    "train_attention_fwd_kh2": _TRAIN,
+    "train_attention_dkdv_kh2": _TRAIN,
+    "train_attention_dq_kh2": _TRAIN,
 }
 MR = "jacobi_multiblock_rejection_recycling"
 # the JAX package's demo run in f32 on the CPU (2023 on a TPU, whose default
@@ -1078,10 +1106,11 @@ def check_grad(out, ref):
     """(max_abs_err, worst err/tol, ok) of a gradient.  f32: |err| <= 2e-5 *
     max|ref| (sums of up to G*L products taken in another order than the
     plain version's GEMMs).  bf16: per element 2^-5 * |ref| + 2^-7 * max|ref|
-    of its row, as `check`, + 2^-9 * max|ref| of the tensor: the kernels read
-    the saved output rounded to bf16, so delta = rowsum(dO * O) is off by
-    2^-9 relative, which shows where the reference cancels exactly (a row that
-    sees a single key has P = 1 and dS = dP - delta = 0)."""
+    of its row, as `check`, + 2^-9 * max|ref| of the tensor: the kernels round
+    dS to bf16 before dS.K and dS^T.Q, which shows where the reference cancels
+    exactly (a row that sees a single key has P = 1 and dS = dP - delta = 0).
+    delta = rowsum(dO * O) is taken from the bf16 O and its residual O_lo,
+    so at float32 precision."""
     bf16 = out.dtype == torch.bfloat16
     out, ref = out.float(), ref.float()
     err = (out - ref).abs()
@@ -1108,15 +1137,17 @@ def train_bounds(c):
     """{kernel: (bound_ms, bound_by)}: each input read once, each output
     written once; 2*D operations per product, visible pair and query head:
     forward QK^T and PV; dQ recomputes S, takes dP and dQ; dK/dV recomputes
-    S, takes dP, dV and dK."""
+    S, takes dP, dV and dK.  bf16 adds out_lo: written by the forward, read
+    by dQ."""
     q = c["q"]
     L, NH, D = q.shape
     KH = c["k"].shape[1]
     it = q.element_size()
     qb, kb, rowb = L * NH * D * it, L * KH * D * it, L * NH * 4
+    lo = qb if q.dtype == torch.bfloat16 else 0
     pairs = train_pairs(c, NH)
-    work = {"train_attention_fwd": (2 * qb + 2 * kb + rowb, 2),  # q,k,v -> out,lse
-            "train_attention_dq": (4 * qb + 2 * kb + 2 * rowb, 3),  # q,k,v,out,dO,lse -> dq,delta
+    work = {"train_attention_fwd": (2 * qb + lo + 2 * kb + rowb, 2),  # q,k,v -> out,lse(,lo)
+            "train_attention_dq": (4 * qb + lo + 2 * kb + 2 * rowb, 3),  # q,k,v,out(,lo),dO,lse -> dq,delta
             "train_attention_dkdv": (2 * qb + 4 * kb + 2 * rowb, 4)}  # q,k,v,dO,lse,delta -> dk,dv
     out = {}
     for name, (nbytes, products) in work.items():
@@ -1155,132 +1186,173 @@ def train_kernel_design():
                              f"missing {sorted(want - have)}")
 
 
-def phase_train_kernel(timing):
-    from jacobiforcing_tpu_torch.ops import train_attention_cuda as tac
-    from jacobiforcing_tpu_torch.ops.train_attention import (
-        train_attention, train_attention_ref, train_mask)
+LAYOUTS = [(1024, 100, 14, 996, 32, 2), (1024, 37, 6, 805, 64, 3), (768, 250, 16, 762, 16, 4),
+           (1024, 128, 10, 896, 32, 2)]
 
+
+def check_train_case(dname, dtype, sname, KH, G, D, variant, lay, seed, tag="train-kernel"):
+    """Kernel 3 (forward, dQ, dK/dV through the dispatcher) against the plain
+    version in float32 on one packed row: `check` / `check_grad`, bitwise
+    repeat, zeros on rows that see nothing."""
+    from jacobiforcing_tpu_torch.ops.train_attention import train_attention, train_attention_ref
+
+    L, P, T, S, N, W = lay
+    c = make_train_case(L, P, T, S, N, KH, G, D, dtype, variant, W, seed=seed)
+    got = train_grads(train_attention, c)
+    again = train_grads(train_attention, c)
+    torch.cuda.synchronize()
+    # the plain version in float32 on the same (rounded) inputs
+    ref = train_grads(train_attention_ref, c, torch.float32)
+    live = c["live"]
+    res = [check(got[0][live], ref[0][live])]
+    res += [check_grad(g, r) for g, r in zip(got[1:], ref[1:])]
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    same = all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again))
+    dead = got[0][~live]  # rows that see nothing: zeros, not NaN
+    ok = all(r[2] for r in res) and finite and same and not bool(dead.any())
+    desc = (f"{dname} {sname} {variant} L={L} P={P} T={T} seq_len={S} N={N}"
+            + (f" W={W}" if variant == "window" else ""))
+    log(f"[{tag}] {desc}: err/tol out {res[0][1]:.3f} dq {res[1][1]:.3f} "
+        f"dk {res[2][1]:.3f} dv {res[3][1]:.3f} max_abs_err out {res[0][0]:.3e} "
+        f"finite={finite} bitwise-repeat={same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"train kernel disagrees with the plain version: {desc}")
+
+
+def phase_train_kernel(timing):
     train_kernel_design()
 
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     shapes = [("demo", 2, 2, 64), ("qwen7b", 4, 7, 128)]
-    # (L, prompt_len, T, seq_len, N, window): seq_len < L everywhere, prompt
-    # lengths off every tile edge, N 16/32/64, and in the last T below the
-    # pairs that seq_len holds (rows past pair T take no part)
-    layouts = [(1024, 100, 14, 996, 32, 2), (1024, 37, 6, 805, 64, 3), (768, 250, 16, 762, 16, 4),
-               (1024, 128, 10, 896, 32, 2)]
+    # LAYOUTS (L, prompt_len, T, seq_len, N, window): seq_len < L everywhere,
+    # prompt lengths off every tile edge, N 16/32/64, and in the last T below
+    # the pairs that seq_len holds (rows past pair T take no part)
     n = 0
     for dname, dtype in dtypes.items():
         for sname, KH, G, D in shapes:
             for variant in ("single", "multiblock", "window"):
-                for L, P, T, S, N, W in layouts:
-                    c = make_train_case(L, P, T, S, N, KH, G, D, dtype, variant, W, seed=7000 + n)
+                for lay in LAYOUTS:
+                    check_train_case(dname, dtype, sname, KH, G, D, variant, lay, seed=7000 + n)
                     n += 1
-                    got = train_grads(train_attention, c)
-                    again = train_grads(train_attention, c)
-                    torch.cuda.synchronize()
-                    # the plain version in float32 on the same (rounded) inputs
-                    ref = train_grads(train_attention_ref, c, torch.float32)
-                    live = c["live"]
-                    res = [check(got[0][live], ref[0][live])]
-                    res += [check_grad(g, r) for g, r in zip(got[1:], ref[1:])]
-                    finite = all(bool(torch.isfinite(t).all()) for t in got)
-                    same = all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again))
-                    dead = got[0][~live]  # rows that see nothing: zeros, not NaN
-                    ok = all(r[2] for r in res) and finite and same and not bool(dead.any())
-                    tag = (f"{dname} {sname} {variant} L={L} P={P} T={T} seq_len={S} N={N}"
-                           + (f" W={W}" if variant == "window" else ""))
-                    log(f"[train-kernel] {tag}: err/tol out {res[0][1]:.3f} dq {res[1][1]:.3f} "
-                        f"dk {res[2][1]:.3f} dv {res[3][1]:.3f} max_abs_err out {res[0][0]:.3e} "
-                        f"finite={finite} bitwise-repeat={same} {'ok' if ok else 'FAIL'}")
-                    if not ok:
-                        raise AssertionError(
-                            f"train kernel disagrees with the plain version: {tag}")
 
     # times at the trainer's shapes: Qwen2.5-7B heads, bf16, `single`, N=32
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     for name, (L, P, T) in {"L4096": (4096, 512, 56), "L16384": (16384, 1024, 240)}.items():
-        c = make_train_case(L, P, T, L, 32, 4, 7, 128, torch.bfloat16, "single", 4, seed=8000)
-        q, k, v, dout = c["q"], c["k"], c["v"], c["dout"]
-        layout = tuple(c["layout"].values())
-        iters = 10 if L <= 4096 else 3
-        out, lse = tac.train_attention_fwd_cuda(q, k, v, layout)
-        dq, delta = tac.train_attention_dq_cuda(q, k, v, out, lse, dout, layout)
-        ms = {
-            "train_attention_fwd": time_ms(
-                lambda: tac.train_attention_fwd_cuda(q, k, v, layout), iters),
-            "train_attention_dq": time_ms(
-                lambda: tac.train_attention_dq_cuda(q, k, v, out, lse, dout, layout), iters),
-            "train_attention_dkdv": time_ms(
-                lambda: tac.train_attention_dkdv_cuda(q, k, v, lse, delta, dout, layout), iters),
-        }
-        # the plain version materialises [heads, L, L] scores: all heads at once
-        # at L=4096, one query head at a time (times summed) at L=16384
-        step = 28 if L <= 4096 else 1
-        plain_f = plain_fb = 0.0
-        errs = {}
-        got = train_grads(train_attention, c)
-        ref_parts = []
-        for h0 in range(0, 28, step):
-            kv = slice(h0 // 7, max(h0 // 7 + 1, (h0 + step) // 7))
-            part = dict(c, q=q[:, h0:h0 + step], k=k[:, kv], v=v[:, kv],
-                        dout=dout[:, h0:h0 + step])
-            pq, pk, pv = part["q"], part["k"], part["v"]
-            plain_f += time_ms(lambda: train_attention_ref(pq, pk, pv, **c["layout"]), 2)
-            plain_fb += time_ms(lambda: train_grads(train_attention_ref, part), 2)
-            if L <= 4096:
-                ref_parts = train_grads(train_attention_ref, part, torch.float32)
-        if L <= 4096:  # the float32 reference fits only here; L=16384 is held to SDPA below
-            res = [check(got[0], ref_parts[0])] + [check_grad(g, r)
-                                                    for g, r in zip(got[1:], ref_parts[1:])]
-            errs = dict(zip(("out", "dq", "dk", "dv"), res))
-        # one SDPA call on the same function: dense boolean mask, K/V repeated
-        # to the query heads beforehand (neither is timed)
-        idx = torch.arange(L, device="cuda", dtype=torch.int32)
-        mask = train_mask(idx[:, None], idx[None, :], P, T, L, 32, "single", 4)[None, None]
-        qt = q.transpose(0, 1)[None].contiguous().requires_grad_()
-        kt = k.repeat_interleave(7, dim=1).transpose(0, 1)[None].contiguous().requires_grad_()
-        vt = v.repeat_interleave(7, dim=1).transpose(0, 1)[None].contiguous().requires_grad_()
-        dt = dout.transpose(0, 1)[None].contiguous()
-        with torch.no_grad():
-            lib_f = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask), iters)
-        lib_fb = time_ms(
-            lambda: torch.autograd.grad(sdpa(qt, kt, vt, attn_mask=mask), (qt, kt, vt), dt), iters)
-        with torch.no_grad():
-            lib_out = sdpa(qt, kt, vt, attn_mask=mask)[0].transpose(0, 1)
-        e_lib, w_lib, ok = check(got[0], lib_out)
-        ok = ok and all(r[2] for r in errs.values())
-        bounds = train_bounds(c)
-        pairs = train_pairs(c, 28)
-        log(f"[train-kernel-time] L={L} P={P} T={T} N=32 single bf16 D=128 KH=4 G=7: "
-            f"{pairs} visible pairs of {L * L} ({pairs / L / L * 100:.1f}%); plain forward "
-            f"{plain_f:.3f} ms, forward+backward {plain_fb:.3f} ms; sdpa forward {lib_f:.3f} ms, "
-            f"forward+backward {lib_fb:.3f} ms; kernel out vs sdpa err/tol {w_lib:.3f}"
-            + "".join(f", {k_} vs f32 plain err/tol {r[1]:.3f}" for k_, r in errs.items())
-            + f" {'ok' if ok else 'FAIL'}")
-        beside = {"train_attention_fwd": f"sdpa forward {lib_f:.3f} ms",
-                  "train_attention_dkdv": f"sdpa forward+backward {lib_fb:.3f} ms",
-                  "train_attention_dq": f"sdpa forward+backward {lib_fb:.3f} ms"}
-        for kname, t in ms.items():
-            bms, by = bounds[kname]
-            log(f"[train-kernel-time]   {kname}: {t:.3f} ms, bound {bms:.4f} ms ({by}), "
-                f"{bms / t * 100:.2f}% of bound; {beside[kname]}")
-        log(f"[train-kernel-time]   backward (delta + dQ + dK/dV) "
-            f"{ms['train_attention_dq'] + ms['train_attention_dkdv']:.3f} ms, "
-            f"forward+backward {sum(ms.values()):.3f} ms")
-        if not ok:
-            raise AssertionError(f"train kernel disagrees at the timed shape L={L}")
-        lib = {"train_attention_fwd": lib_f}
-        plain = {"train_attention_fwd": plain_f, "train_attention_dq": plain_fb - plain_f,
-                 "train_attention_dkdv": plain_fb - plain_f}
-        err_of = {"train_attention_fwd": "out", "train_attention_dq": "dq",
-                  "train_attention_dkdv": "dk"}
-        for kname, t in ms.items():
-            e = errs[err_of[kname]][0] if errs else e_lib
-            timing[f"{kname}_{name}"] = dict(
-                ms=t, plain_ms=plain[kname], library_ms=lib.get(kname), bound_ms=bounds[kname][0],
-                bound_by=bounds[kname][1], max_abs_err=e)
-        timing[f"train_sdpa_{name}"] = dict(forward=lib_f, forward_backward=lib_fb)
+        train_kernel_times(timing, name, L, P, T, KH=4)
+
+
+def phase_train_tp_kernel(timing):
+    """Kernel 3 at the launch shapes of tensor-parallel training, one rank's
+    heads at TP 2: Qwen2.5-7B's (14 query, 2 KV heads, D 128) and the demo
+    model's (2 query heads of 1 KV head, D 64), f32 and bf16, the three
+    variants, against the plain version; then its times at Qwen2.5-7B's on L
+    4096 (`single`, N 32) beside the bound, the plain version and SDPA."""
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    for seed0, (sname, KH, G, D) in ((7700, ("qwen7b KH=2", 2, 7, 128)),
+                                     (7720, ("demo KH=1", 1, 2, 64))):
+        n = 0
+        for dname, dtype in dtypes.items():
+            for variant in ("single", "multiblock", "window"):
+                for lay in LAYOUTS[:2]:
+                    check_train_case(dname, dtype, sname, KH, G, D, variant, lay,
+                                     seed=seed0 + n, tag="train-tp-kernel")
+                    n += 1
+    train_kernel_times(timing, "kh2_L4096", 4096, 512, 56, KH=2, tag=" KH2")
+
+
+def train_kernel_times(timing, name, L, P, T, KH, G=7, tag=""):
+    """Kernel 3 (forward, dQ, dK/dV) timed on one packed row of L tokens
+    (`single`, N 32, bf16, D 128, KH KV heads of G query heads each) beside
+    its bound, the plain version and SDPA under a dense boolean mask; the
+    outputs held to the float32 plain version (L <= 4096) or to SDPA.
+    Records timing[f"{kernel}_{name}"]."""
+    from jacobiforcing_tpu_torch.ops import train_attention_cuda as tac
+    from jacobiforcing_tpu_torch.ops.train_attention import (
+        train_attention, train_attention_ref, train_mask)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    NH = KH * G
+    c = make_train_case(L, P, T, L, 32, KH, G, 128, torch.bfloat16, "single", 4, seed=8000)
+    q, k, v, dout = c["q"], c["k"], c["v"], c["dout"]
+    layout = tuple(c["layout"].values())
+    iters = 10 if L <= 4096 else 3
+    out, lse, out_lo = tac.train_attention_fwd_cuda(q, k, v, layout)
+    dq, delta = tac.train_attention_dq_cuda(q, k, v, out, lse, dout, layout, out_lo)
+    ms = {
+        "train_attention_fwd": time_ms(
+            lambda: tac.train_attention_fwd_cuda(q, k, v, layout), iters),
+        "train_attention_dq": time_ms(
+            lambda: tac.train_attention_dq_cuda(q, k, v, out, lse, dout, layout, out_lo),
+            iters),
+        "train_attention_dkdv": time_ms(
+            lambda: tac.train_attention_dkdv_cuda(q, k, v, lse, delta, dout, layout), iters),
+    }
+    # the plain version materialises [heads, L, L] scores: all heads at once
+    # at L=4096, one query head at a time (times summed) at L=16384
+    step = NH if L <= 4096 else 1
+    plain_f = plain_fb = 0.0
+    errs = {}
+    got = train_grads(train_attention, c)
+    ref_parts = []
+    for h0 in range(0, NH, step):
+        kv = slice(h0 // G, max(h0 // G + 1, (h0 + step) // G))
+        part = dict(c, q=q[:, h0:h0 + step], k=k[:, kv], v=v[:, kv],
+                    dout=dout[:, h0:h0 + step])
+        pq, pk, pv = part["q"], part["k"], part["v"]
+        plain_f += time_ms(lambda: train_attention_ref(pq, pk, pv, **c["layout"]), 2)
+        plain_fb += time_ms(lambda: train_grads(train_attention_ref, part), 2)
+        if L <= 4096:
+            ref_parts = train_grads(train_attention_ref, part, torch.float32)
+    if L <= 4096:  # the float32 reference fits only here; L=16384 is held to SDPA below
+        res = [check(got[0], ref_parts[0])] + [check_grad(g, r)
+                                                for g, r in zip(got[1:], ref_parts[1:])]
+        errs = dict(zip(("out", "dq", "dk", "dv"), res))
+    # one SDPA call on the same function: dense boolean mask, K/V repeated
+    # to the query heads beforehand (neither is timed)
+    idx = torch.arange(L, device="cuda", dtype=torch.int32)
+    mask = train_mask(idx[:, None], idx[None, :], P, T, L, 32, "single", 4)[None, None]
+    qt = q.transpose(0, 1)[None].contiguous().requires_grad_()
+    kt = k.repeat_interleave(G, dim=1).transpose(0, 1)[None].contiguous().requires_grad_()
+    vt = v.repeat_interleave(G, dim=1).transpose(0, 1)[None].contiguous().requires_grad_()
+    dt = dout.transpose(0, 1)[None].contiguous()
+    with torch.no_grad():
+        lib_f = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask), iters)
+    lib_fb = time_ms(
+        lambda: torch.autograd.grad(sdpa(qt, kt, vt, attn_mask=mask), (qt, kt, vt), dt), iters)
+    with torch.no_grad():
+        lib_out = sdpa(qt, kt, vt, attn_mask=mask)[0].transpose(0, 1)
+    e_lib, w_lib, ok = check(got[0], lib_out)
+    ok = ok and all(r[2] for r in errs.values())
+    bounds = train_bounds(c)
+    pairs = train_pairs(c, NH)
+    log(f"[train-kernel-time{tag}] L={L} P={P} T={T} N=32 single bf16 D=128 KH={KH} G={G}: "
+        f"{pairs} visible pairs of {L * L} ({pairs / L / L * 100:.1f}%); plain forward "
+        f"{plain_f:.3f} ms, forward+backward {plain_fb:.3f} ms; sdpa forward {lib_f:.3f} ms, "
+        f"forward+backward {lib_fb:.3f} ms; kernel out vs sdpa err/tol {w_lib:.3f}"
+        + "".join(f", {k_} vs f32 plain err/tol {r[1]:.3f}" for k_, r in errs.items())
+        + f" {'ok' if ok else 'FAIL'}")
+    beside = {"train_attention_fwd": f"sdpa forward {lib_f:.3f} ms",
+              "train_attention_dkdv": f"sdpa forward+backward {lib_fb:.3f} ms",
+              "train_attention_dq": f"sdpa forward+backward {lib_fb:.3f} ms"}
+    for kname, t in ms.items():
+        bms, by = bounds[kname]
+        log(f"[train-kernel-time{tag}]   {kname}: {t:.3f} ms, bound {bms:.4f} ms ({by}), "
+            f"{bms / t * 100:.2f}% of bound; {beside[kname]}")
+    log(f"[train-kernel-time{tag}]   backward (delta + dQ + dK/dV) "
+        f"{ms['train_attention_dq'] + ms['train_attention_dkdv']:.3f} ms, "
+        f"forward+backward {sum(ms.values()):.3f} ms")
+    if not ok:
+        raise AssertionError(f"train kernel disagrees at the timed shape L={L} KH={KH}")
+    lib = {"train_attention_fwd": lib_f}
+    plain = {"train_attention_fwd": plain_f, "train_attention_dq": plain_fb - plain_f,
+             "train_attention_dkdv": plain_fb - plain_f}
+    err_of = {"train_attention_fwd": "out", "train_attention_dq": "dq",
+              "train_attention_dkdv": "dk"}
+    for kname, t in ms.items():
+        e = errs[err_of[kname]][0] if errs else e_lib
+        timing[f"{kname}_{name}"] = dict(
+            ms=t, plain_ms=plain[kname], library_ms=lib.get(kname), bound_ms=bounds[kname][0],
+            bound_by=bounds[kname][1], max_abs_err=e)
+    timing[f"train_sdpa_{name}"] = dict(forward=lib_f, forward_backward=lib_fb)
 
 
 # ---------------------------------------------------------------------------
@@ -2900,6 +2972,508 @@ def phase_tp(counter, launches_out, params=None):
         raise AssertionError("tp: " + "; ".join(faults))
 
 
+# ---------------------------------------------------------------------------
+# Phase `train_mesh`: data-parallel / fsdp and TP training, two ranks
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 3
+MESH_LR = 1e-5  # the reference's (and TrainerArgs') learning rate
+# the demo-width runs: (dp, tp), global batch, attention, remat
+MESH_DEMO_RUNS = {"dp2": ((2, 1), 2, "dense", False), "tp2": ((1, 2), 1, "splash", True)}
+# Gates of the demo-width runs: f32, TF32 off, two ranks against one process
+# on a (1, 1) mesh, leaf by leaf as RMS error over RMS (the key bias's
+# moments over the query bias's RMS: its gradient nearly cancels, since
+# softmax ignores a shift common to a query's scores).  Step 1 runs at
+# learning rate 0, so steps 1 and 2 see the same weights and checkpoint-1's
+# AdamW moments hold the first gradient itself: MESH_LOSS_TOL and MESH_TOL
+# are rounding bounds (readings up to 4.8e-7 and 3.0e-5), and a gradient
+# left unreduced over an axis reads O(1) there (0.95 for `ln1`).
+# Checkpoint-3 holds two updates.  Adam's first updates are sign-like, so
+# rounding in a gradient entry near zero decides which way it moves: the
+# change of the weights from the start, over all leaves at once, read up to
+# 8.9e-2 between the (1, 2) runs, each about 7e-2 from the same run in
+# float64 on the host (printed beside), and 1.0 when a step never writes its
+# update back; MESH_DELTA_TOL lies between.  Step 3's loss (4.4e-4; 8.7e-4
+# and 1.1e-3 with the update skipped) and checkpoint-3's moments (1.7e-2)
+# take loose bounds.  Readings: NVIDIA H100 80GB HBM3, 700 W; the planted
+# faults (`plant_fault`) run in every `train_mesh` phase (PERF.md §6).
+MESH_LOSS_TOL = 1e-5  # steps 1 and 2
+MESH_TOL = 1e-3  # checkpoint-1
+MESH_LOSS3_TOL = 2e-3  # step 3
+MESH_TOL3 = 5e-2  # checkpoint-3's moments
+MESH_DELTA_TOL = 0.3  # checkpoint-3's change of the weights, all leaves at once
+# planted faults (`plant_fault`): which demo runs each spoils
+MESH_FAULTS = {"skip": ("dp2", "tp2"), "ln1": ("dp2",)}
+# Qwen2.5-7B widths, one packed row per rank: (2, 1) fsdp dense and (1, 2)
+# splash (kernel 3 on 2 of the 4 KV heads per rank)
+MESH_FULL_ROW = (512, 24, 32)  # P, T, N: 2048 tokens
+MESH_FULL_TP_ROW = (512, 56, 32)  # 4096 tokens, the `train` phase's row
+
+
+def mesh_args(out_dir, gb, impl, remat, **kw):
+    from jacobiforcing_tpu_torch.train.trainer import TrainerArgs
+
+    kw = dict(dict(save_steps=0), **kw)
+    return TrainerArgs(output_dir=out_dir, max_new_tokens=32, attn_impl=impl, remat=remat,
+                       global_batch=gb, learning_rate=MESH_LR, warmup_steps=1,
+                       max_steps=MESH_STEPS, log_steps=1, resume=False, **kw)
+
+
+def mesh_demo_runs(counter, workdir, mesh_of, suffix, dtype=torch.float32, device=None,
+                   tags=tuple(MESH_DEMO_RUNS)):
+    """The demo-width runs `tags` of `MESH_DEMO_RUNS` through `train()`, each
+    from the demo checkpoint's weights in `dtype` on `device` (default: the
+    card) on the rows in `workdir/rows.jsonl`, each writing
+    `workdir/<tag>-<suffix>/checkpoint-{1,2,3}`; `mesh_of(dp, tp)` is the
+    mesh to run on.  Returns {tag: history, launches, plain calls}."""
+    from jacobiforcing_tpu_torch.train.trainer import train
+    from jacobiforcing_tpu_torch.utils.loader import load_checkpoint
+
+    device = device or DEV
+    out = {}
+    for tag in tags:
+        (dp, tp), gb, impl, remat = MESH_DEMO_RUNS[tag]
+        cfg, full = load_checkpoint(DEMO, dtype=dtype, device=device)
+        mesh = mesh_of(dp, tp)
+        zero_counts(counter)
+        res = train(mesh_args(os.path.join(workdir, f"{tag}-{suffix}"), gb, impl, remat,
+                              data_path=os.path.join(workdir, "rows.jsonl"), seq_bucket=256,
+                              save_steps=1),
+                    model_cfg=cfg, params=full, mesh=mesh, eos_id=2, pad_id=0, device=device,
+                    log_fn=lambda *_: None)
+        out[tag] = dict(history=res["history"], launches=read_counts(), plain=counter.n,
+                        coords=list(mesh.coords), layers=cfg.num_layers)
+    return out
+
+
+def plant_fault(name):
+    """Spoil this rank's training step, as a negative control of the demo
+    gates: "skip" puts the weights back after every AdamW update (the
+    moments still move); "ln1" leaves the `ln1` gradient this rank's own,
+    not summed over the data ranks.  Returns the function that undoes it."""
+    from jacobiforcing_tpu_torch.train import consistency
+    from jacobiforcing_tpu_torch.train.optim import AdamW
+
+    if name == "skip":
+        apply = AdamW.apply
+
+        def skipping(self, state):
+            keep = [p.detach().clone() for p in state.leaves]
+            lr = apply(self, state)
+            with torch.no_grad():
+                for p, k in zip(state.leaves, keep):
+                    p.copy_(k)
+            return lr
+
+        AdamW.apply = skipping
+        return lambda: setattr(AdamW, "apply", apply)
+    if name == "ln1":
+        reduce_grads = consistency.reduce_grads
+
+        def unreduced_ln1(params, *a, **kw):
+            own = params["layers"]["ln1"].grad.clone()
+            reduce_grads(params, *a, **kw)
+            params["layers"]["ln1"].grad.copy_(own)
+
+        consistency.reduce_grads = unreduced_ln1
+        return lambda: setattr(consistency, "reduce_grads", reduce_grads)
+    raise ValueError(f"unknown fault {name!r}")
+
+
+def leaf_norms(params, cfg, mesh):
+    """The global gradient norm of a mesh rank's blocks: each leaf's squared
+    norm summed over the axes it is split along."""
+    from jacobiforcing_tpu_torch.parallel.collectives import reduce_sum
+    from jacobiforcing_tpu_torch.parallel.sharding import param_specs
+
+    specs = param_specs(cfg, fsdp=True)
+    sums = {}
+    for name, v in params.items():
+        for key, t in (v.items() if isinstance(v, dict) else [(name, v)]):
+            spec = specs[name][key] if isinstance(v, dict) else specs[name]
+            axes = tuple(a for a in ("data", "model") if a in spec)
+            sq = torch.linalg.vector_norm(t.grad.double()) ** 2
+            sums[axes] = sums.get(axes, 0) + sq
+    total = 0.0
+    for axes, s in sums.items():
+        for a in axes:
+            reduce_sum(s, mesh.data_group if a == "data" else mesh.model_group)
+        total += float(s)
+    return math.sqrt(total)
+
+
+def mesh_full_rank(mesh, gb, impl, row, counter):
+    """Qwen2.5-7B widths (all 28 layers, bf16, random weights drawn whole on
+    the card and cut to the rank's blocks), one packed row of shape `row`
+    (P, T, N) per data rank, `impl` attention, remat, MESH_STEPS steps
+    through `train()`: losses, the step times, the global gradient norm, peak
+    memory, the kernels' launches and the plain attention calls on CUDA."""
+    from jacobiforcing_tpu_torch.models.qwen import ModelConfig, init_params
+    from jacobiforcing_tpu_torch.parallel.sharding import shard_params
+    from jacobiforcing_tpu_torch.train.trainer import train
+
+    cfg = ModelConfig()
+    cuda = DEV == "cuda"
+    full = init_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    params = shard_params(full, cfg, mesh, fsdp=True)
+    del full
+    gc.collect()
+    P, T, N = row
+    ds = [packed_row(cfg.vocab_size, P, T, N, seed=s) for s in range(2)]
+    stamps = []
+
+    def on_log(msg):
+        if cuda:
+            torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+    zero_counts(counter)
+    t0 = time.perf_counter()
+    res = train(mesh_args("", gb, impl, True, seq_bucket=P + 2 * T * N), model_cfg=cfg,
+                params=params, dataset=ds, mesh=mesh, device=DEV, log_fn=on_log)
+    launches, plain = read_counts(), counter.n
+    out = dict(history=res["history"], step_s=[b - a for a, b in zip([t0] + stamps, stamps)],
+               gnorm=leaf_norms(params, cfg, mesh), launches=launches, plain=plain,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+               held_gib=held if cuda else None, coords=list(mesh.coords),
+               shape=[mesh.shape["data"], mesh.shape["model"]], impl=impl, row=list(row),
+               layers=cfg.num_layers,
+               block_gib=sum(t.numel() * t.element_size() for _, t in param_items(params))
+               / 2**30)
+    del params, res
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_rank(part, rank, port, out_path, backend, workdir):
+    """One rank of the `train_mesh` phase's 2-process world.  gloo: both
+    ranks on card 0; nccl: card `rank`.  `part` "demo" runs the demo-width
+    runs on (2, 1) and (1, 2) meshes, then those of `MESH_FAULTS` again with
+    each planted fault; "full" Qwen2.5-7B widths on (2, 1) and (1, 2).
+    Writes what it ran to `out_path`."""
+    import torch.distributed as dist
+
+    from jacobiforcing_tpu_torch.parallel.mesh import make_mesh
+    from jacobiforcing_tpu_torch.parallel.multihost import initialize_multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    nccl = backend == "nccl"
+    initialize_multihost(f"localhost:{port}", 2, rank, backend=backend,
+                         local_rank=rank if nccl else 0)
+    res = {"device": torch.cuda.current_device() if DEV == "cuda" else None}
+    counter = PlainOnCudaCounter()
+    if part == "demo":
+        res.update(mesh_demo_runs(counter, workdir, lambda dp, tp: make_mesh(tp, dp), "mesh"))
+        res["faults"] = {}
+        for name, tags in MESH_FAULTS.items():
+            undo = plant_fault(name)
+            res["faults"][name] = mesh_demo_runs(counter, workdir,
+                                                 lambda dp, tp: make_mesh(tp, dp),
+                                                 f"fault-{name}", tags=tags)
+            undo()
+    else:
+        res["full"] = mesh_full_rank(make_mesh(1, 2), 2, "dense", MESH_FULL_ROW, counter)
+        dist.barrier()  # both ranks' memory is back before the next run
+        res["full_tp"] = mesh_full_rank(make_mesh(2, 1), 1, "splash", MESH_FULL_TP_ROW, counter)
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_train_ranks(part, backend, workdir, timeout):
+    """Run `train_rank` in two processes; a rank that fails fails the phase."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    paths = [os.path.join(workdir, f"{part}-{backend}-rank{r}.json") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "train-rank", part,
+                               str(r), str(port), paths[r], backend, workdir], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            log(f"[train-mesh] {part} {backend} rank {r} failed (rc {p.returncode}):\n"
+                f"{text[-4000:]}")
+            raise AssertionError(f"a {backend} rank failed")
+    ranks = []
+    for path in paths:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def checkpoint_leaves(path):
+    """{"<kind> <leaf>": float64 tensor} of a checkpoint's weights and AdamW
+    moments (kinds: weights, exp_avg, exp_avg_sq), named as the parameter
+    dict's leaves (the optimizer state follows `param_leaves`' order); the
+    demo checkpoint, which holds no optimizer state, gives its weights."""
+    from jacobiforcing_tpu_torch.train.optim import param_leaves
+    from jacobiforcing_tpu_torch.utils.loader import load_checkpoint
+
+    _, params = load_checkpoint(path, dtype=torch.float64, device="cpu")
+    names = [n for n, _ in sorted(param_items(params))]
+    if len(names) != len(param_leaves(params)):
+        raise AssertionError("leaf names do not follow param_leaves")
+    out = {f"weights {n}": t for n, t in param_items(params)}
+    if os.path.exists(os.path.join(path, "opt_state.pt")):
+        sd = torch.load(os.path.join(path, "opt_state.pt"), map_location="cpu",
+                        weights_only=True)
+        for i, s_ in sd["opt"]["state"].items():
+            for m in ("exp_avg", "exp_avg_sq"):
+                out[f"{m} {names[i]}"] = s_[m].double()
+    return out
+
+
+def rms(t):
+    return float(t.pow(2).mean().sqrt())
+
+
+def mesh_checkpoint_errors(got_dir, want_dir, start):
+    """(per leaf, delta) for two checkpoints of runs that began from the
+    weights `start` (`checkpoint_leaves`): per leaf RMS error / RMS of the
+    reference over the AdamW moments (the key bias's over the query bias's
+    RMS) and over the weights' change from `start`; delta = |change of got
+    - change of want| / |change of want| over all weights at once."""
+    got, want = checkpoint_leaves(got_dir), checkpoint_leaves(want_dir)
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"the checkpoints hold other leaves: {sorted(set(got) ^ set(want))}")
+    errs, num, den = {}, 0.0, 0.0
+    for k, v in want.items():
+        g = got[k]
+        if k in start:
+            g, v = g - start[k], v - start[k]
+            num += float((g - v).pow(2).sum())
+            den += float(v.pow(2).sum())
+            errs[k] = rms(g - v) / max(rms(v), 1e-30)
+        else:
+            errs[k] = rms(g - v) / max(rms(v), rms(want[k.replace(".bk", ".bq")]), 1e-30)
+    return errs, math.sqrt(num / max(den, 1e-300)) if num else 0.0
+
+
+def mesh_demo_readings(workdir, tag, got, want, start, got_hist, want_hist):
+    """Readings of the run `<tag>-<got>` against `<tag>-<want>`: relative
+    loss error per step, checkpoint-1's worst leaves, checkpoint-3's worst
+    moments and the change of the weights (`mesh_checkpoint_errors`)."""
+    step_err = [max(abs(h[i]["loss"] - w["loss"]) / abs(w["loss"]) for h in got_hist)
+                for i, w in enumerate(want_hist)]
+    ck = {c: mesh_checkpoint_errors(*(os.path.join(workdir, f"{tag}-{side}", f"checkpoint-{c}")
+                                      for side in (got, want)), start)
+          for c in (1, MESH_STEPS)}
+    worst1 = sorted(ck[1][0].items(), key=lambda kv: -kv[1])[:3]
+    moments3 = sorted(((k, e) for k, e in ck[MESH_STEPS][0].items() if not k.startswith("weights")),
+                      key=lambda kv: -kv[1])[:3]
+    return dict(step_err=step_err, worst1=worst1, moments3=moments3, delta1=ck[1][1],
+                delta3=ck[MESH_STEPS][1])
+
+
+def report_mesh_demo(ranks, one, exact, smi, suffix="mesh", label="", tags=tuple(MESH_DEMO_RUNS)):
+    """The demo-width lines and gates: each rank's losses against the (1, 1)
+    run's, checkpoints 1 and 3 (written by rank (0, 0)) against its, kernel
+    3's launches per rank (TP 2) and no plain attention on CUDA; beside them
+    how far the f32 runs sit from the float64 runs `exact` (None: not run).
+    Returns {tag: ok}."""
+    workdir = one["workdir"]
+    start = checkpoint_leaves(DEMO)
+    verdict = {}
+    for tag in tags:
+        (dp, tp), gb, impl, remat = MESH_DEMO_RUNS[tag]
+        L = one[tag]["layers"]
+        per_step = ({"train_attention_fwd": 2 * L, "train_attention_dq": L,
+                     "train_attention_dkdv": L} if impl == "splash"
+                    else {n: 0 for n in TRAIN_KERNEL_NAMES})
+        want = {n: per_step[n] * MESH_STEPS for n in TRAIN_KERNEL_NAMES}
+        r = mesh_demo_readings(workdir, tag, suffix, "one", start,
+                               [x[tag]["history"] for x in ranks], one[tag]["history"])
+        launches = [{k: x[tag]["launches"][k] for k in TRAIN_KERNEL_NAMES} for x in ranks]
+        plain = [x[tag]["plain"] for x in ranks]
+        ok = (max(r["step_err"][:2]) <= MESH_LOSS_TOL and r["step_err"][2] <= MESH_LOSS3_TOL
+              and r["worst1"][0][1] <= MESH_TOL and r["delta3"] <= MESH_DELTA_TOL
+              and r["moments3"][0][1] <= MESH_TOL3
+              and all(x == want for x in launches) and plain == [0, 0]
+              and all(len(x[tag]["history"]) == MESH_STEPS for x in ranks))
+        fmt = lambda kv: [(k, f"{e:.2e}") for k, e in kv]
+        line = (f"[train-mesh] demo f32 {label}(dp, tp) = ({dp}, {tp}) {impl}"
+                f"{' remat' if remat else ''}, global batch {gb}, {MESH_STEPS} steps on 2 ranks "
+                f"(coords {[x[tag]['coords'] for x in ranks]}) vs one process (1, 1): losses "
+                f"{[round(h['loss'], 6) for h in one[tag]['history']]}, relative error per step "
+                f"{[f'{e:.2e}' for e in r['step_err']]} (bounds {MESH_LOSS_TOL}, {MESH_LOSS_TOL}, "
+                f"{MESH_LOSS3_TOL}); RMS error / RMS, worst three leaves: checkpoint-1 "
+                f"{fmt(r['worst1'])} (bound {MESH_TOL}); checkpoint-{MESH_STEPS} moments "
+                f"{fmt(r['moments3'])} (bound {MESH_TOL3}), change of the weights over all "
+                f"leaves {r['delta3']:.3e} (bound {MESH_DELTA_TOL}); kernel 3 launches per rank "
+                f"{launches} (want {want}); plain attention calls on CUDA {plain}")
+        if exact is not None:
+            # each f32 run against the same run in float64 on the host
+            e_one = mesh_demo_readings(workdir, tag, "one", "f64", start,
+                                       [one[tag]["history"]], exact[tag]["history"])
+            e_mesh = mesh_demo_readings(workdir, tag, suffix, "f64", start,
+                                        [x[tag]["history"] for x in ranks],
+                                        exact[tag]["history"])
+            line += "; against float64 on the host: " + "; ".join(
+                f"{who} step 3 loss {e['step_err'][2]:.2e}, checkpoint-1 {fmt(e['worst1'][:1])}, "
+                f"change of the weights {e['delta3']:.3e}"
+                for who, e in (("one process", e_one), ("2 ranks", e_mesh)))
+        log(f"{line}; {smi} {'ok' if ok else 'FAIL'}")
+        verdict[tag] = ok
+    return verdict
+
+
+def report_mesh_full(tag, ranks, smi):
+    """The full-width lines and gates: finite losses and gradient norm; at
+    (1, 2) kernel 3's launches per rank and no plain attention on CUDA."""
+    faults = []
+    for run in ("full", "full_tp"):
+        for r in ranks:
+            f = r[run]
+            hist = f["history"]
+            P, T, N = f["row"]
+            L = f["layers"]
+            finite = all(math.isfinite(h[k]) for h in hist for k in ("loss", "loss_ar",
+                                                                       "loss_consistency"))
+            want = ({"train_attention_fwd": 2 * L * MESH_STEPS, "train_attention_dq": L * MESH_STEPS,
+                     "train_attention_dkdv": L * MESH_STEPS} if f["impl"] == "splash"
+                    else {n: 0 for n in TRAIN_KERNEL_NAMES})
+            launches = {k: f["launches"][k] for k in TRAIN_KERNEL_NAMES}
+            ok = (finite and len(hist) == MESH_STEPS and f["gnorm"] > 0
+                  and math.isfinite(f["gnorm"]) and launches == want and f["plain"] == 0)
+            peak = (f"peak torch.cuda.max_memory_allocated {f['peak_gib']:.2f} GiB "
+                    f"({f['held_gib']:.2f} GiB held before)" if f["peak_gib"] is not None
+                    else "peak not measured")
+            dp, tp = f["shape"]
+            log(f"[train-mesh] {tag} Qwen2.5-7B widths, {L} layers, bf16, remat, {f['impl']}, "
+                f"(dp, tp) = ({dp}, {tp}){' fsdp' if dp > 1 else ''}, coords {f['coords']}: one "
+                f"packed row of {P + 2 * T * N} tokens (P {P}, T {T}, N {N}) per data rank, "
+                f"global batch {dp}: {MESH_STEPS} steps {[round(x, 3) for x in f['step_s']]} s "
+                f"({tag}-bound, not a speed); losses {[round(h['loss'], 4) for h in hist]}; "
+                f"gradient norm {f['gnorm']:.4f}; weights block {f['block_gib']:.2f} GiB; {peak} "
+                f"(one process, a 4096-token row: 61.79 GiB on this card type); kernel 3 "
+                f"launches {launches} (want {want}); plain attention calls on CUDA {f['plain']}; "
+                f"{smi} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                faults.append(f"{tag} full width ({dp}, {tp}) rank {f['coords']}")
+    return faults
+
+
+def report_exactness(counter, workdir, one, exact, smi):
+    """Where the card's f32 training leaves exact arithmetic: the (1, 2)
+    demo configuration in one process with kernel 3 (`one`) and once more
+    with the plain attention on the card, each against the same run in
+    float64 on the host (`exact`): relative loss error per step, the change
+    of the weights and, per q/k leaf, the share of first-gradient entries
+    above 1e-7 whose sign differs from float64's (Adam's first steps move
+    each such entry by about the learning rate, whichever its size)."""
+    from jacobiforcing_tpu_torch.models import qwen
+    from jacobiforcing_tpu_torch.ops import train_attention as ta
+    from jacobiforcing_tpu_torch.parallel.mesh import make_mesh
+
+    kernel = qwen.train_attention
+    qwen.train_attention = lambda q, k, v, **kw: ta.train_attention_ref(q, k, v, **kw)
+    try:
+        plain = mesh_demo_runs(counter, workdir, lambda dp, tp: make_mesh(1, 1), "plain",
+                               tags=("tp2",))["tp2"]
+    finally:
+        qwen.train_attention = kernel
+    start = checkpoint_leaves(DEMO)
+    first = checkpoint_leaves(os.path.join(workdir, "tp2-f64", "checkpoint-1"))
+    for name, run in (("one", one["tp2"]), ("plain", plain)):
+        r = mesh_demo_readings(workdir, "tp2", name, "f64", start, [run["history"]],
+                               exact["tp2"]["history"])
+        got = checkpoint_leaves(os.path.join(workdir, f"tp2-{name}", "checkpoint-1"))
+        flips = {}
+        for leaf in ("wq", "wk", "bq", "bk"):
+            g, e = got[f"exp_avg layers.{leaf}"], first[f"exp_avg layers.{leaf}"]
+            big = e.abs() > 1e-8  # the first moment is a tenth of the gradient
+            flips[leaf] = float(((torch.sign(g) != torch.sign(e)) & big).double().mean())
+        log(f"[train-exact] demo (1, 2) configuration in one process, f32 on the card with "
+            f"{'kernel 3' if name == 'one' else 'the plain attention'}, against float64 on the "
+            f"host: relative loss error per step {[f'{x:.2e}' for x in r['step_err']]}, change "
+            f"of the weights over all leaves {r['delta3']:.3e}, first-gradient sign flips "
+            f"{[(k, f'{v:.2e}') for k, v in flips.items()]}, kernel 3 launches "
+            f"{ {k: run['launches'][k] for k in TRAIN_KERNEL_NAMES} }, plain attention calls "
+            f"on CUDA {run['plain']}; {smi}")
+
+
+def phase_train_mesh(counter, timing, launches_out):
+    """(c) kernel 3 at TP 2's shapes; (a) the demo widths on (2, 1) fsdp dense
+    (global batch 2) and (1, 2) splash + remat, two ranks sharing the card
+    over gloo, against one process on a (1, 1) mesh and beside float64 on
+    the host; the same with planted faults, which must fail the gates; where
+    the f32 runs leave float64 (`report_exactness`); (b) Qwen2.5-7B widths
+    on (2, 1) fsdp dense and (1, 2) splash over gloo.  With two cards or
+    more, (a) and (b) again over NCCL, one rank per card."""
+    from jacobiforcing_tpu_torch.data import pack_trajectories, synthesize_trajectories_masking
+    from jacobiforcing_tpu_torch.parallel.mesh import make_mesh
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    phase_train_tp_kernel(timing)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=os.path.join(REPO, "build"))
+    faults = []
+    worlds = ["gloo"] + (["nccl"] if DEV == "cuda" and torch.cuda.device_count() >= 2 else [])
+    try:
+        traj = synthesize_trajectories_masking(copy_task_samples(16, seed=0), chunk_size=32,
+                                               pad_id=0, seed=0)
+        pack_trajectories(traj, 32, output_path=os.path.join(workdir, "rows.jsonl"))
+        one = mesh_demo_runs(counter, workdir, lambda dp, tp: make_mesh(1, 1), "one")
+        one["workdir"] = workdir
+        t0 = time.perf_counter()
+        exact = mesh_demo_runs(counter, workdir, lambda dp, tp: make_mesh(1, 1), "f64",
+                               torch.float64, "cpu")
+        log(f"[train-mesh] demo float64 on the host (1, 1): {time.perf_counter() - t0:.1f}s")
+        report_exactness(counter, workdir, one, exact, smi)
+        for backend in worlds:
+            tag = "gloo, both ranks on card 0" if backend == "gloo" else "NCCL, cards 0 and 1"
+            t0 = time.perf_counter()
+            ranks = spawn_train_ranks("demo", backend, workdir, timeout=300)
+            log(f"[train-mesh] demo {tag}: ranks on cards {[r['device'] for r in ranks]}, "
+                f"{time.perf_counter() - t0:.1f}s")
+            faults += [f"{backend} demo {t}" for t, ok in
+                       report_mesh_demo(ranks, one, exact, smi).items() if not ok]
+            missed = []
+            for name, tags in MESH_FAULTS.items():
+                verdict = report_mesh_demo([r["faults"][name] for r in ranks], one, None, smi,
+                                           suffix=f"fault-{name}",
+                                           label=f"planted fault {name!r} ", tags=tags)
+                missed += [f"{name} {t}" for t, ok in verdict.items() if ok]
+            log(f"[train-mesh] {backend}: planted faults the gates missed: {missed or 'none'} "
+                "(each planted run above must read FAIL)")
+            faults += [f"{backend} planted fault passed: {m}" for m in missed]
+            gc.collect()
+            if DEV == "cuda":
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            ranks = spawn_train_ranks("full", backend, workdir, timeout=700)
+            log(f"[train-mesh] full width {tag}: ranks on cards {[r['device'] for r in ranks]}, "
+                f"{time.perf_counter() - t0:.1f}s")
+            faults += report_mesh_full(backend, ranks, smi)
+            if backend == "gloo":
+                launches_out["train_tp2_full"] = ranks[0]["full_tp"]["launches"]
+        if worlds == ["gloo"]:
+            log(f"[train-mesh] NCCL: not run ({torch.cuda.device_count()} card; NCCL takes one "
+                "rank per card)")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    if faults:
+        raise AssertionError("train_mesh: " + "; ".join(faults))
+
+
 COMPARE_PATTERNS = {
     # [train-kernel-time] L=4096 ...: sdpa forward X ms, forward+backward Y ms
     "sdpa": r"\[train-kernel-time\] L=(\d+) .*sdpa forward ([\d.]+) ms, forward\+backward ([\d.]+)",
@@ -2988,6 +3562,10 @@ def main() -> int:
     if len(sys.argv) == 6 and sys.argv[1] == "tp-rank":
         # one rank of the `tp` phase: tp-rank RANK PORT OUT_JSON BACKEND
         return tp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
+    if len(sys.argv) == 8 and sys.argv[1] == "train-rank":
+        # one rank of the `train_mesh` phase: train-rank PART RANK PORT OUT_JSON BACKEND WORKDIR
+        return train_rank(sys.argv[2], int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6],
+                          sys.argv[7])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3000,7 +3578,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phases = (sys.argv[1].split(",") if len(sys.argv) > 1
               else ["kernel", "train_kernel", "demo", "sampling", "full", "engine", "full_quant",
-                    "tp", "train"])
+                    "tp", "train", "train_mesh"])
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
@@ -3051,6 +3629,11 @@ def main() -> int:
         run("tp", phase_tp, counter, launches, params)
     if "train" in phases:
         run("train", phase_train, counter, launches, params)
+    if "train_mesh" in phases:
+        params = None  # two ranks of Qwen2.5-7B training share the card next
+        gc.collect()
+        torch.cuda.empty_cache()
+        run("train_mesh", phase_train_mesh, counter, timing, launches)
     log(f"[phase] all, the build included: {time.perf_counter() - t0:.1f}s")
 
     if all(p in phases for p in ("kernel", "train_kernel", "full", "full_quant", "train")):
@@ -3067,6 +3650,11 @@ def main() -> int:
                  launches["w8a8_fp8_mr"]["spec_attention"]),
                 ("int4_matmul", timing["int4_gateup_M256"], launches["int4_path"]["int4_matmul"])]
         rows += [(n, timing[f"{n}_L4096"], launches["train"][n]) for n in TRAIN_KERNEL_NAMES]
+        if "train_mesh" in phases:
+            # kernel 3 at TP 2's local heads; launches: rank 0 of the
+            # Qwen2.5-7B (1, 2) run on rows of 4096 tokens
+            rows += [(f"{n}_kh2", timing[f"{n}_kh2_L4096"], launches["train_tp2_full"][n])
+                     for n in TRAIN_KERNEL_NAMES]
         if "tp" in phases:
             # rank 0 of the TP 2 run: its Jacobi and MR paths on 2 KV heads
             rows += [("paged_attention_kh2", timing["decode_kh2"],

@@ -52,7 +52,8 @@
 //     cp.async stages; the host's pair list says per warpgroup whether a tile
 //     is empty (the warpgroup skips it), partial (masked by the words) or
 //     full, and the pairs with the longest lists are launched first.
-//     Writes O and a float32 log-sum-exp, which dQ and dK/dV read.
+//     Writes O, a float32 log-sum-exp, which dQ and dK/dV read, and O's
+//     rounding residual O_lo = bf16(O - bf16(O)), which dQ reads.
 //   * dQ (train_dq_tc_kernel): the forward's grid, pair lists, K/V ring and
 //     masking, with the CTA's dO tiles staged beside its Q tiles.  Per key
 //     tile S = Q.K^T and dP = dO.V^T by wgmma from shared memory (K and V
@@ -60,8 +61,12 @@
 //     delta) on the accumulator fragments, then dQ += dS.K with dS rounded
 //     to bf16 as the register A operand and K read MN-major (as P.V reads
 //     V); dQ is scaled once at the end.  Delta is folded in: each CTA first
-//     takes rowsum(dO * O) of its 128 rows from the saved bf16 O and writes
-//     it for dK/dV, so one kernel replaces the fp32 pair.  Bounded, like the
+//     takes rowsum(dO * (O + O_lo)) of its 128 rows and writes it for dK/dV,
+//     so one kernel replaces the fp32 pair.  O + O_lo is the forward's
+//     float32 O to about 2^-17 of itself: delta from the bf16 O alone is off
+//     by up to 2^-9 of rowsum|dO * O|, and in dQ = scale P (dP - delta) K that
+//     error does not cancel where the exact terms do (a row that sees few
+//     keys), which put dQ past the bf16 rule at one KV head.  Bounded, like the
 //     forward, by the operations (three products per visible pair against
 //     the forward's two); what it leaves on the table is the same: the copy
 //     issue of the 16-byte cp.async gathers inside the wgmma windows and one
@@ -551,6 +556,37 @@ __device__ __forceinline__ unsigned long long visible_word(int q, int bq, int k0
   return w;
 }
 
+// Write this thread's two rows of O (r_lo: the CTA row of row lo) as hi =
+// bf16(O) to out, as tc::store_rows does, and lo = bf16(O - hi) to out_lo;
+// a row with no visible key writes zeros to both.
+template <int D>
+__device__ __forceinline__ void store_rows_split(bf16* __restrict__ out, bf16* __restrict__ out_lo,
+                                                 const tc::Rows<D>& st, int L, int NH, int h,
+                                                 int G, int row0, int r_lo) {
+  const int q4 = threadIdx.x & 3;
+  const int n_rows = G * L;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float l = st.l[rr];
+    l = __fadd_rn(l, __shfl_xor_sync(FULL, l, 1));
+    l = __fadd_rn(l, __shfl_xor_sync(FULL, l, 2));
+    const int r = row0 + r_lo + 8 * rr;
+    if (r >= n_rows) continue;
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    const long long off = ((long long)(r / G) * NH + h * G + r % G) * D + 2 * q4;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const float x0 = __fmul_rn(st.o[4 * i + 2 * rr], inv);
+      const float x1 = __fmul_rn(st.o[4 * i + 2 * rr + 1], inv);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+      const float2 hf = __bfloat1622float2(hi);
+      *reinterpret_cast<__nv_bfloat162*>(out + off + 8 * i) = hi;
+      *reinterpret_cast<__nv_bfloat162*>(out_lo + off + 8 * i) =
+          __floats2bfloat162_rn(__fsub_rn(x0, hf.x), __fsub_rn(x1, hf.y));
+    }
+  }
+}
+
 // The forward: CTA = tc::WGS = 2 warpgroups = query tiles 2p and 2p + 1 of KV
 // head h; pair_ent holds 16 * key tile + class of tile 2p + 4 * class of tile
 // 2p + 1 for every 64-key tile either of them sees.  The K/V ring, the copy
@@ -561,8 +597,8 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
 train_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const int* __restrict__ pair_ptr,
                     const int* __restrict__ pair_ent, const int* __restrict__ pair_order,
-                    bf16* __restrict__ out, float* __restrict__ lse, int L, int NH, int KH,
-                    Layout lay, float scale) {
+                    bf16* __restrict__ out, float* __restrict__ lse, bf16* __restrict__ out_lo,
+                    int L, int NH, int KH, Layout lay, float scale) {
   extern __shared__ unsigned char smem_tc[];
   const tc::Smem<D> sm(smem_tc);
   __shared__ int ent_s[tc::STAGES];  // each stage's pair entry
@@ -623,7 +659,7 @@ train_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
   tc::walk_keys<bf16, D>(sm, pair_ptr[pair + 1] - e0, issue, step, nullptr, nullptr, tid);
 
-  tc::store_rows<D>(out, st, 0, L, NH, h, G, row0, r_lo);
+  store_rows_split<D>(out, out_lo, st, L, NH, h, G, row0, r_lo);
   // the natural-log log-sum-exp of the scaled scores: m is the running max in
   // the log2 domain, l the row sum of 2^(s * scale_log2 - m)
 #pragma unroll
@@ -701,9 +737,10 @@ __device__ __forceinline__ void dq_tile_step(uint32_t q, uint32_t dO, uint32_t k
 // dQ with delta folded in: the forward's grid and lists (CTA = tc::WGS = 2
 // warpgroups = query tiles 2p and 2p + 1 of KV head h, the 64-key tiles of
 // pair_ent in ascending order, longest lists first) and its K/V ring.  The
-// CTA first takes delta = rowsum(dO * O) of its 128 rows from the saved bf16
-// O (one warp per row, fmaf over each lane's elements in order, then a fixed
-// butterfly), writes it for the dK/dV call and keeps it for dS.  Dynamic
+// CTA first takes delta = rowsum(dO * (O + O_lo)) of its 128 rows from the
+// forward's O and residual (one warp per row, fmaf over each lane's elements
+// in order, then a fixed butterfly), writes it for the dK/dV call and keeps it
+// for dS.  Dynamic
 // shared memory: tc::SMEM<D> (Q tiles, the K/V ring), then the dO tiles.
 template <int D>
 constexpr size_t DQ_SMEM = tc::SMEM<D> + size_t(tc::WGS) * tc::TILE<D>;
@@ -712,9 +749,10 @@ template <int D>
 __global__ void __launch_bounds__(tc::THREADS, 1)
 train_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ out,
-                   const bf16* __restrict__ dout, const float* __restrict__ lse,
-                   const int* __restrict__ pair_ptr, const int* __restrict__ pair_ent,
-                   const int* __restrict__ pair_order, bf16* __restrict__ dq,
+                   const bf16* __restrict__ out_lo, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse, const int* __restrict__ pair_ptr,
+                   const int* __restrict__ pair_ent, const int* __restrict__ pair_order,
+                   bf16* __restrict__ dq,
                    float* __restrict__ delta, int L, int NH, int KH, Layout lay, float scale) {
   extern __shared__ unsigned char smem_tc[];
   const tc::Smem<D> sm(smem_tc);
@@ -755,7 +793,9 @@ train_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const long long off = ((long long)(r / G) * NH + h * G + r % G) * D + lane * DPL;
 #pragma unroll
         for (int i = 0; i < DPL; ++i)
-          d[j] = fmaf(__bfloat162float(dout[off + i]), __bfloat162float(out[off + i]), d[j]);
+          d[j] = fmaf(__bfloat162float(dout[off + i]),
+                      __fadd_rn(__bfloat162float(out[off + i]), __bfloat162float(out_lo[off + i])),
+                      d[j]);
       }
     }
 #pragma unroll
@@ -1097,6 +1137,7 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 struct Args {
   const void *q, *k, *v, *out, *dout, *lse, *delta, *ptr, *ent;
   const void* order;            // bf16 forward and dQ: the pairs in launch order
+  void* out_lo;                 // bf16 forward (written) and dQ (read): O's residual
   const void *chunks, *reduce;  // bf16 dK/dV: the chunk and reduce lists
   void* partial;                // bf16 dK/dV: float32 partials of split key tiles
   void *o0, *o1;  // outputs: fwd (out, lse), dq (dq, delta), dkdv (dk, dv)
@@ -1157,10 +1198,11 @@ int launch_dkdv(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// pair_ptr / pair_ent in ptr / ent, the launch order of the pairs in order
+// pair_ptr / pair_ent in ptr / ent, the launch order of the pairs in order;
+// writes O, the log-sum-exp and O's residual
 template <int D>
 int launch_fwd_tc(const Args& a) {
-  if (a.order == nullptr) return -1;
+  if (a.order == nullptr || a.out_lo == nullptr) return -1;
   constexpr size_t smem = tc::SMEM<D>;
   cudaError_t err = allow_smem(train_fwd_tc_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1170,15 +1212,15 @@ int launch_fwd_tc(const Args& a) {
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
       static_cast<const int*>(a.ptr), static_cast<const int*>(a.ent),
       static_cast<const int*>(a.order), static_cast<bf16*>(a.o0), static_cast<float*>(a.o1),
-      a.L, a.NH, a.KH, a.lay, a.scale);
+      static_cast<bf16*>(a.out_lo), a.L, a.NH, a.KH, a.lay, a.scale);
   return (int)cudaGetLastError();
 }
 
-// pair_ptr / pair_ent in ptr / ent, the pairs' launch order in order; writes
-// dQ and delta
+// pair_ptr / pair_ent in ptr / ent, the pairs' launch order in order, O's
+// residual in out_lo; writes dQ and delta
 template <int D>
 int launch_dq_tc(const Args& a) {
-  if (a.order == nullptr) return -1;
+  if (a.order == nullptr || a.out_lo == nullptr) return -1;
   constexpr size_t smem = DQ_SMEM<D>;
   cudaError_t err = allow_smem(train_dq_tc_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1186,10 +1228,11 @@ int launch_dq_tc(const Args& a) {
   const dim3 grid((rows + tc::ROWS - 1) / tc::ROWS, a.KH);
   train_dq_tc_kernel<D><<<grid, tc::THREADS, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-      static_cast<const bf16*>(a.out), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const int*>(a.ptr),
-      static_cast<const int*>(a.ent), static_cast<const int*>(a.order), static_cast<bf16*>(a.o0),
-      static_cast<float*>(a.o1), a.L, a.NH, a.KH, a.lay, a.scale);
+      static_cast<const bf16*>(a.out), static_cast<const bf16*>(a.out_lo),
+      static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const int*>(a.ptr), static_cast<const int*>(a.ent),
+      static_cast<const int*>(a.order), static_cast<bf16*>(a.o0), static_cast<float*>(a.o1),
+      a.L, a.NH, a.KH, a.lay, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -1279,32 +1322,36 @@ int attrs(int which, int dtype, int* out) {
 // success, a cudaError_t code after a refused launch, or -1 for a shape, dtype
 // or layout the kernels do not take (the Python wrapper checks those first).
 
-// float32: q_ptr / q_ent per query tile over 32-key tiles, order null;
-// bfloat16: pair_ptr / pair_ent per pair of query tiles over 64-key tiles and
-// the pairs in launch order (TileMap).  The same for dQ.
+// float32: q_ptr / q_ent per query tile over 32-key tiles, order and out_lo
+// null; bfloat16: pair_ptr / pair_ent per pair of query tiles over 64-key
+// tiles and the pairs in launch order (TileMap), and out_lo [L, NH, D], where
+// the forward writes O's rounding residual and dQ reads it.  The same for dQ.
 extern "C" int jf_train_attention_fwd(const void* q, const void* k, const void* v,
                                       const void* q_ptr, const void* q_ent, const void* order,
-                                      void* out, void* lse, int L, int NH, int KH, int D,
-                                      const int* layout, float scale, int dtype, void* stream) {
+                                      void* out, void* lse, void* out_lo, int L, int NH, int KH,
+                                      int D, const int* layout, float scale, int dtype,
+                                      void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.ptr = q_ptr; a.ent = q_ent; a.order = order; a.o0 = out;
-  a.o1 = lse;
+  a.o1 = lse; a.out_lo = out_lo;
   a.L = L; a.NH = NH; a.KH = KH; a.scale = scale;
   a.lay = Layout{layout[0], layout[1], layout[2], layout[3], layout[4], layout[5]};
   a.stream = static_cast<cudaStream_t>(stream);
   return dispatch(0, dtype, D, a);
 }
 
-// Also writes delta[L, NH] = rowsum(dout * out), which the dK/dV call reads.
+// Also writes delta[L, NH] = rowsum(dout * out) (bf16: dout * (out + out_lo)),
+// which the dK/dV call reads.
 extern "C" int jf_train_attention_dq(const void* q, const void* k, const void* v,
-                                     const void* out, const void* dout, const void* lse,
-                                     const void* q_ptr, const void* q_ent, const void* order,
-                                     void* dq, void* delta,
+                                     const void* out, const void* out_lo, const void* dout,
+                                     const void* lse, const void* q_ptr, const void* q_ent,
+                                     const void* order, void* dq, void* delta,
                                      int L, int NH, int KH, int D, const int* layout,
                                      float scale, int dtype, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.out = out; a.dout = dout; a.lse = lse; a.ptr = q_ptr;
   a.ent = q_ent; a.order = order; a.o0 = dq; a.o1 = delta;
+  a.out_lo = const_cast<void*>(out_lo);
   a.L = L; a.NH = NH; a.KH = KH; a.scale = scale;
   a.lay = Layout{layout[0], layout[1], layout[2], layout[3], layout[4], layout[5]};
   a.stream = static_cast<cudaStream_t>(stream);

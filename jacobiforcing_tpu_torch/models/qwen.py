@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -473,6 +473,7 @@ def forward_dense(
     splash_spec: Optional[tuple] = None,  # static layout -> block-sparse kernels
     remat: bool = False,  # recompute each layer's activations in the backward
     group: Group = None,  # the model group (tensor parallelism)
+    gather: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None,  # fsdp
 ) -> torch.Tensor:
     """Training-path forward: no KV cache, differentiable.  Returns [B, T, H].
 
@@ -484,10 +485,19 @@ def forward_dense(
     stacked tensor or a list of per-layer tensors.  Under a model group the
     collectives carry gradients as Megatron's layers do
     (`parallel/collectives.reduce_sum` / `copy_in`).
+
+    `gather(name, block)` (fsdp, `parallel/sharding.fsdp_gather`) turns a
+    rank's block of the embedding and of each layer's weights into the whole
+    weight where it is used: inside the layer, so under `remat` a layer's
+    weights are gathered again in the recompute and only one layer's are
+    held at a time.
     """
     B, T = input_ids.shape
     pos_l = positions.long()
-    x = embed(params, cfg, input_ids, group)
+    if gather is None:
+        x = embed(params, cfg, input_ids, group)
+    else:
+        x = embed({"embed": gather("embed", params["embed"])}, cfg, input_ids, group)
     cos_t, sin_t = rope
     cos, sin = cos_t[pos_l], sin_t[pos_l]
     scale = 1.0 / math.sqrt(cfg.head_dim)
@@ -500,6 +510,8 @@ def forward_dense(
         attn_mask = (idx[:, None] >= idx[None, :])[None]  # [1, T, T] causal
 
     def layer(h, w):
+        if gather is not None:
+            w = {name: gather(name, t) for name, t in w.items()}
         q, kk, vv = _layer_qkv(cfg, w, h, cos, sin, group)
         if splash_spec is not None:
             o = train_attention(q[0], kk[0], vv[0], prompt_len=p_len, T_pairs=t_pairs,
@@ -563,9 +575,12 @@ def logits_at(params: Dict[str, Any], cfg: ModelConfig, hidden: torch.Tensor,
               group: Group = None) -> torch.Tensor:
     """LM head over an (already gathered) hidden slice; float32+ logits.
     Under a model group the ranks' vocab slices are gathered in vocab order,
-    so every rank returns the same [..., V]."""
+    so every rank returns the same [..., V]; under autograd the head's input
+    gradient is summed over the group (`copy_in`: each rank's columns
+    contribute their part)."""
     w = _head(params, cfg)
     acc = acc_dtype(cfg.dtype)
+    hidden = copy_in(hidden, group)
     return gather_last(_cols_logits(cfg, w, hidden, _act_q(w, cfg, hidden), acc), group)
 
 

@@ -301,8 +301,8 @@ class _TrainAttentionCuda(torch.autograd.Function):
         from jacobiforcing_tpu_torch.ops import train_attention_cuda as tac
 
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = tac.train_attention_fwd_cuda(q, k, v, layout)
-        ctx.save_for_backward(q, k, v, out, lse)
+        out, lse, out_lo = tac.train_attention_fwd_cuda(q, k, v, layout)
+        ctx.save_for_backward(q, k, v, out, lse, out_lo)
         ctx.layout = layout
         return out
 
@@ -310,9 +310,9 @@ class _TrainAttentionCuda(torch.autograd.Function):
     def backward(ctx, dout):
         from jacobiforcing_tpu_torch.ops import train_attention_cuda as tac
 
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, out_lo = ctx.saved_tensors
         dout = dout.contiguous()
-        dq, delta = tac.train_attention_dq_cuda(q, k, v, out, lse, dout, ctx.layout)
+        dq, delta = tac.train_attention_dq_cuda(q, k, v, out, lse, dout, ctx.layout, out_lo)
         dk, dv = tac.train_attention_dkdv_cuda(q, k, v, lse, delta, dout, ctx.layout)
         return dq, dk, dv, None
 

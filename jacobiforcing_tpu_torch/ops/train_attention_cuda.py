@@ -7,7 +7,9 @@ splash_train_attention`, forward and backward; the plain version is
 the fp32 CUDA-core kernels (32-key tiles; dQ after a delta kernel); bfloat16
 inputs take the tensor-core kernels (64-key tiles, `train_fwd_tc_kernel`,
 `train_dq_tc_kernel` with delta folded in, `train_dkdv_tc_kernel` +
-`train_dkdv_reduce_kernel`).  `layout` is
+`train_dkdv_reduce_kernel`); the bf16 forward also writes `out_lo`, the
+residual of `out`'s rounding to bf16, from which dQ takes delta =
+rowsum(dO * O) at float32 precision.  `layout` is
 `(prompt_len, T_pairs, seq_len, N, variant, window_size)`.  Each wrapper
 checks device, dtype, shape and contiguity and raises on anything the kernels
 do not take; it launches on PyTorch's current stream, does not synchronise,
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,7 +45,7 @@ def _kernels():
                                      ctypes.c_void_p]
         fns = {}
         # dkdv: 13 pointers, then the chunk and reduce counts
-        for name, head in (("fwd", [ctypes.c_void_p] * 8), ("dq", [ctypes.c_void_p] * 11),
+        for name, head in (("fwd", [ctypes.c_void_p] * 9), ("dq", [ctypes.c_void_p] * 12),
                            ("dkdv", [ctypes.c_void_p] * 13 + [ctypes.c_int] * 2)):
             fn = getattr(lib, f"jf_train_attention_{name}")
             fn.argtypes = head + tail
@@ -153,28 +155,43 @@ def _call(name: str, args, q, k, layout) -> None:
         raise RuntimeError(f"train_attention {name} kernel launch failed ({rc}): {msg}")
 
 
-def train_attention_fwd_cuda(q, k, v, layout) -> Tuple[torch.Tensor, torch.Tensor]:
+def train_attention_fwd_cuda(q, k, v, layout
+                             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """(out [L, NH, D], lse [L, NH] float32: the row log-sum-exp of the scaled
-    scores, 0 for a row that sees nothing)."""
+    scores, 0 for a row that sees nothing, out_lo): bf16, out_lo [L, NH, D] =
+    bf16(O - out), the rounding residual of the float32 O, which dQ reads;
+    f32, None."""
     check_inputs(q, k, v, layout)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    out_lo = torch.empty_like(q) if _tc(q) else None
     _call("fwd", [t.data_ptr() for t in (q, k, v)] + _query_lists(q, k, layout)
-          + [out.data_ptr(), lse.data_ptr()], q, k, layout)
+          + [out.data_ptr(), lse.data_ptr(), None if out_lo is None else out_lo.data_ptr()],
+          q, k, layout)
     train_attention_fwd_cuda.launches += 1
-    return out, lse
+    return out, lse, out_lo
 
 
-def train_attention_dq_cuda(q, k, v, out, lse, dout, layout) -> Tuple[torch.Tensor, torch.Tensor]:
+def train_attention_dq_cuda(q, k, v, out, lse, dout, layout, out_lo=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dq [L, NH, D], delta [L, NH] float32 = rowsum(dout * out), which the
     dK/dV call reads).  bf16: one kernel over the forward's pair lists that
-    also takes delta; f32: a delta kernel, then the fp32 dQ kernel."""
-    check_inputs(q, k, v, layout, [("out", out, q.shape, q.dtype),
-                                   ("dout", dout, q.shape, q.dtype),
-                                   ("lse", lse, q.shape[:2], torch.float32)])
+    also takes delta, from out + out_lo (the forward's third output, which it
+    needs); f32: a delta kernel, then the fp32 dQ kernel (out_lo None)."""
+    others = [("out", out, q.shape, q.dtype), ("dout", dout, q.shape, q.dtype),
+              ("lse", lse, q.shape[:2], torch.float32)]
+    if _tc(q):
+        if out_lo is None:
+            raise ValueError("the bf16 dQ needs out_lo, the forward's residual of out")
+        others.append(("out_lo", out_lo, q.shape, q.dtype))
+    elif out_lo is not None:
+        raise ValueError("out_lo is the bf16 forward's; the f32 dQ takes none")
+    check_inputs(q, k, v, layout, others)
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
-    _call("dq", [t.data_ptr() for t in (q, k, v, out, dout, lse)] + _query_lists(q, k, layout)
+    _call("dq", [t.data_ptr() for t in (q, k, v, out)]
+          + [None if out_lo is None else out_lo.data_ptr()]
+          + [t.data_ptr() for t in (dout, lse)] + _query_lists(q, k, layout)
           + [dq.data_ptr(), delta.data_ptr()], q, k, layout)
     train_attention_dq_cuda.launches += 1
     return dq, delta

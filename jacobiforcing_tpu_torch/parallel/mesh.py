@@ -75,6 +75,14 @@ class Mesh:
             if group is not None:
                 dist.destroy_process_group(group)
 
+    def barrier(self) -> None:
+        """Wait until every rank of the mesh gets here: the data group, then
+        the model group (rank (d, m) passes after (d, 0), which passed after
+        every (., 0))."""
+        for axis in self.axis_names:
+            if self.groups[axis] is not None:
+                dist.barrier(group=self.groups[axis])
+
     def index(self, axis: str) -> int:
         """This rank's coordinate along `axis`."""
         if self.coords is None:
@@ -91,17 +99,22 @@ def make_mesh(
     `torch.distributed` world, or the one process when there is none).
 
     `tensor_parallel_size` is the reference's `Config.tensor_parallel_size`;
-    data_parallel_size = -1 uses all remaining ranks.  Every rank of the world
-    must call this with the same arguments: creating a process group is
-    collective.
+    data_parallel_size = -1 uses all remaining ranks.  The grid covers every
+    rank of `ranks`: a (dp, tp) that leaves some out raises (pass the ranks
+    the mesh is made of instead; those outside it get `coords` None).  Every
+    rank of the world must call this with the same arguments: creating a
+    process group is collective.
     """
     world = dist.is_initialized()
     ranks = list(ranks if ranks is not None else range(dist.get_world_size() if world else 1))
     n = len(ranks)
     tp = tensor_parallel_size
-    assert n % tp == 0, f"{n} ranks not divisible by tp={tp}"
+    if n % tp:
+        raise ValueError(f"{n} ranks do not divide by tp={tp}")
     dp = data_parallel_size if data_parallel_size > 0 else n // tp
-    assert dp * tp <= n
+    if dp * tp != n:
+        raise ValueError(f"a (data {dp}, model {tp}) mesh needs {dp * tp} ranks, and it is "
+                         f"given {n}: pass `ranks` to build it over part of the world")
     grid = np.asarray(ranks[: dp * tp]).reshape(dp, tp)
     me = dist.get_rank() if world else 0
     hits = np.argwhere(grid == me)

@@ -36,7 +36,9 @@ def initialize_multihost(
     `coordinator_address` is "host:port" (default `MASTER_ADDR:MASTER_PORT`),
     `num_processes` the world size (default `WORLD_SIZE`, else 1) and
     `process_id` this rank (default `RANK`).  Where a card is present, this
-    process's device is set to `local_rank` (default `LOCAL_RANK`, else 0).
+    process's device is set to card `local_rank % device_count` (default
+    `LOCAL_RANK`, else 0), so "cuda" names it: ranks beyond the node's cards
+    share them (over gloo; NCCL takes one rank per card).
     """
     if dist.is_initialized():
         return
@@ -52,7 +54,7 @@ def initialize_multihost(
     if local_rank is None:
         local_rank = int(os.environ.get("LOCAL_RANK", "0"))
     if torch.cuda.is_available():
-        torch.cuda.set_device(local_rank)
+        torch.cuda.set_device(local_rank % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
                             world_size=num_processes, rank=process_id)
 

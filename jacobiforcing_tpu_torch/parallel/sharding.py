@@ -13,19 +13,23 @@ one entry per array axis, the mesh axis it is split over or None.
   * batch axes of the decode state over "data".
 
 `fsdp=True` (ZeRO-3, the reference's ds_config.json) also splits the hidden
-axis of the large layer stacks over "data"; the serving engine does not use
-it.  `shard_params` cuts a full parameter dict to this rank's share, on the
-host (numpy arrays, CPU tensors) or wherever the tensors are, so a
-checkpoint can be sliced before anything reaches the card.
+axis of the large layer stacks, the embedding and the head over "data"; the
+serving engine does not use it.  `shard_params` cuts a full parameter dict
+to this rank's share, on the host (numpy arrays, CPU tensors) or wherever
+the tensors are, so a checkpoint can be sliced before anything reaches the
+card; `unshard_array` is its inverse over the mesh's groups (a checkpoint
+written from a mesh), and `fsdp_gather` the weight gather the trainer's
+forward runs layer by layer.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
+from jacobiforcing_tpu_torch.parallel.collectives import Group, gather_cat, gather_data
 from jacobiforcing_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 
 Spec = Tuple[Any, ...]
@@ -134,13 +138,52 @@ def shard_params(params: Dict[str, Any], cfg, mesh: Mesh, *, fsdp: bool = False)
                     "s": shard_array(x["s"], _scale_spec(spec, x["q"].ndim), mesh)}
         return shard_array(x, spec, mesh)
 
-    wk = params["layers"]["wk"]
-    width = (wk["q"] if isinstance(wk, dict) else wk).shape[-1]
-    if width != cfg.kv_size:  # a share cut again would still divide
-        raise ValueError(f"shard_params takes the full weights: wk has {width} output "
-                         f"columns, the model {cfg.kv_size}")
+    if not is_full(params, cfg):  # a share cut again would still divide
+        raise ValueError(f"shard_params takes the full weights: embed is "
+                         f"{tuple(params['embed'].shape)}, wk {tuple(_width_of(params))}; the "
+                         f"model's are {(cfg.vocab_size, cfg.hidden_size)} and [.., "
+                         f"{cfg.hidden_size}, {cfg.kv_size}]")
     specs = param_specs(cfg, fsdp=fsdp)
     out = {k: cut(v, specs[k]) for k, v in params.items() if k != "layers"}
     out["layers"] = {k: cut(v, specs["layers"][k]) for k, v in params["layers"].items()}
     return out
+
+
+def _width_of(params) -> Tuple[int, ...]:
+    wk = params["layers"]["wk"]
+    return tuple((wk["q"] if isinstance(wk, dict) else wk).shape)
+
+
+def is_full(params: Dict[str, Any], cfg) -> bool:
+    """Whether `params` holds the whole weights (and not a rank's share): the
+    embedding is [vocab, hidden] and wk [layers, hidden, kv_size]."""
+    return (tuple(params["embed"].shape) == (cfg.vocab_size, cfg.hidden_size)
+            and _width_of(params)[-2:] == (cfg.hidden_size, cfg.kv_size))
+
+
+def unshard_array(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor of which `x` is this rank's block under `spec`: the
+    inverse of `shard_array`, an all-gather over each split axis's group
+    (collective: every rank of the mesh calls it)."""
+    for axis, name in enumerate(spec):
+        if name is not None:
+            x = gather_cat(x, axis, mesh.groups[name])
+    return x
+
+
+def fsdp_gather(cfg, group: Group) -> Callable[[str, torch.Tensor], torch.Tensor]:
+    """`gather(name, block)` for `models/qwen.forward_dense`: a rank's block
+    of the leaf `name` (a per-layer weight or a top-level one) gathered over
+    the data group along its fsdp axis, with the gradient reduce-scattered
+    back (`collectives.gather_data`); a leaf that fsdp leaves whole passes
+    through."""
+    specs = param_specs(cfg, fsdp=True)
+    dims = {k: v.index(DATA_AXIS) for k, v in specs.items() if k != "layers" and DATA_AXIS in v}
+    # a layer's weight drops the stack's leading axis
+    dims.update({k: v.index(DATA_AXIS) - 1 for k, v in specs["layers"].items() if DATA_AXIS in v})
+
+    def gather(name: str, block: torch.Tensor) -> torch.Tensor:
+        return block if name not in dims else gather_data(block, dims[name], group)
+
+    return gather
 

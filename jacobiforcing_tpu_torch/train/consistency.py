@@ -20,8 +20,14 @@ PyTorch port of `jacobiforcing_tpu/train/consistency.py`:
     from the first k/l divergence on, scaled by T_soft^2 / T.
 
 Host-side index preparation (`prepare_sample`, numpy only) produces
-fixed-shape padded index arrays.  One packed sample per step (batch 1, as the
-reference trains); data-parallel training over a mesh is not ported yet.
+fixed-shape padded index arrays.  Without a mesh a step takes one packed
+sample (batch 1, as the reference trains).  Over a (data, model) mesh
+(`parallel/mesh.py`) every rank runs the same step on a global batch of B
+samples, SPMD: the rank takes its B / dp samples (sample i goes to data index
+i // (B / dp), as the JAX "data" sharding places a stacked batch), the loss is
+the mean over B of the per-sample losses, and the parameters are the rank's
+fsdp blocks (`shard_params(..., fsdp=True)`): ZeRO-3, the reference's
+torchrun ranks under DeepSpeed.
 """
 
 from __future__ import annotations
@@ -34,7 +40,12 @@ import torch
 
 from jacobiforcing_tpu_torch.models.qwen import ModelConfig, forward_dense, logits_at
 from jacobiforcing_tpu_torch.ops.train_attention import train_mask
+from jacobiforcing_tpu_torch.parallel.collectives import Group, reduce_sum
+from jacobiforcing_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
+from jacobiforcing_tpu_torch.parallel.sharding import fsdp_gather, param_specs
 from jacobiforcing_tpu_torch.train.optim import AdamW, OptState
+
+Gather = Optional[Callable[[str, torch.Tensor], torch.Tensor]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +75,8 @@ class TrainConfig:
 
 def build_train_mask(L: int, prompt_len, T, seq_len, N: int, variant: str = "single",
                      window_size: int = 4, device="cpu") -> torch.Tensor:
-    """[L, L] bool mask (True = attend); the scalars may be ints or 0-d tensors."""
+    """[L, L] bool mask (True = attend); the scalars may be ints or 0-d tensors,
+    or [b, 1, 1] tensors for a [b, L, L] mask."""
     idx = torch.arange(L, dtype=torch.int32, device=device)
     return train_mask(idx[:, None], idx[None, :], prompt_len, T, seq_len, N, variant, window_size)
 
@@ -193,43 +205,76 @@ def consistency_losses(
     rope,
     batch: Dict[str, torch.Tensor],
     static_layout: Optional[Tuple[int, int, int]] = None,  # (prompt_len, T, seq_len)
+    *,
+    group: Group = None,
+    gather: Gather = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Forward one packed sample (bs=1 like the reference) and compute losses."""
-    ids = batch["input_ids"][None, :]  # [1, L]
-    L = ids.shape[1]
+    totals, metrics = batch_losses(params, cfg, tc, rope, {k: v[None] for k, v in batch.items()},
+                                   static_layout, group=group, gather=gather)
+    return totals[0], {k: v[0] for k, v in metrics.items()}
+
+
+def _head_params(params: Dict[str, Any], cfg: ModelConfig, gather: Gather) -> Dict[str, Any]:
+    """The leaf `logits_at` reads, gathered whole under fsdp."""
+    name = "embed" if cfg.tie_word_embeddings else "lm_head"
+    return {name: params[name] if gather is None else gather(name, params[name])}
+
+
+def batch_losses(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    tc: TrainConfig,
+    rope,
+    batch: Dict[str, torch.Tensor],  # prepare_sample outputs stacked: [b, ...]
+    static_layout: Optional[Tuple[int, int, int]] = None,
+    *,
+    group: Group = None,  # the model group (tensor parallelism)
+    gather: Gather = None,  # fsdp: a rank's block -> the whole weight
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Per-sample (total [b], {loss_ar, loss_consistency} [b]) of b packed
+    samples in one forward (the JAX mesh step's `vmap`): each sample is
+    normalized on its own.  Splash attention takes one sample."""
+    ids = batch["input_ids"]  # [b, L]
+    b, L = ids.shape
     dev = ids.device
-    pos = shared_position_ids(L, batch["prompt_len"], tc.N, dev)[None]
+    p_len = batch["prompt_len"][:, None]
+    pos = shared_position_ids(L, p_len, tc.N, dev)
     if tc.attn_impl == "splash":
         if static_layout is None:
             raise ValueError("splash attention needs a static layout (prompt_len, T, seq_len)")
         p_len, t_pairs, seq_len = static_layout
         spec = (p_len, t_pairs, seq_len, tc.N, tc.variant, tc.window_size)
-        h = forward_dense(params, cfg, ids, pos, rope, splash_spec=spec, remat=tc.remat)[0]
+        h = forward_dense(params, cfg, ids, pos, rope, splash_spec=spec, remat=tc.remat,
+                          group=group, gather=gather)
     else:
-        mask = build_train_mask(L, batch["prompt_len"], batch["T"], batch["seq_len"], tc.N,
-                                tc.variant, tc.window_size, dev)[None]
-        h = forward_dense(params, cfg, ids, pos, rope, mask, remat=tc.remat)[0]
+        lay = [batch[k][:, None, None] for k in ("prompt_len", "T", "seq_len")]
+        mask = build_train_mask(L, *lay, tc.N, tc.variant, tc.window_size, dev)  # [b, L, L]
+        h = forward_dense(params, cfg, ids, pos, rope, mask, remat=tc.remat, group=group,
+                          gather=gather)
+    head = _head_params(params, cfg, gather)
+    rows = torch.arange(b, device=dev)[:, None]
 
     # AR loss (x ar_weight)
-    h_ar = h[batch["ar_p"].long()]  # [Ka, H]
-    ar_logits = logits_at(params, cfg, h_ar)
+    h_ar = h[rows, batch["ar_p"].long()]  # [b, Ka, H]
+    ar_logits = logits_at(head, cfg, h_ar, group)
     logp = torch.log_softmax(ar_logits, dim=-1)
-    nll = -torch.gather(logp, 1, batch["ar_t"].long()[:, None])[:, 0]
+    nll = -torch.gather(logp, -1, batch["ar_t"].long()[..., None])[..., 0]
     w = batch["ar_valid"].to(nll.dtype)
-    loss_ar = torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0) * tc.ar_weight
+    loss_ar = torch.sum(nll * w, -1) / torch.clamp(torch.sum(w, -1), min=1.0) * tc.ar_weight
 
     # consistency loss: student k_j offsets vs detached teacher last_j offsets
     Ts = tc.distill_temperature
-    h_s = h[batch["cons_s"].long()]
-    s_logits = logits_at(params, cfg, h_s) / Ts
+    h_s = h[rows, batch["cons_s"].long()]
+    s_logits = logits_at(head, cfg, h_s, group) / Ts
     with torch.no_grad():
-        t_logits = logits_at(params, cfg, h[batch["cons_t"].long()]) / Ts
+        t_logits = logits_at(head, cfg, h[rows, batch["cons_t"].long()], group) / Ts
         t_prob = torch.softmax(t_logits, dim=-1)
     s_logp = torch.log_softmax(s_logits, dim=-1)
-    ent = -torch.sum(t_prob * s_logp, dim=-1)  # [Kc]
+    ent = -torch.sum(t_prob * s_logp, dim=-1)  # [b, Kc]
     cw = batch["cons_valid"].to(ent.dtype)
-    n_cons = torch.sum(cw)
-    loss_cons = torch.sum(ent * cw) / torch.clamp(n_cons, min=1.0)
+    n_cons = torch.sum(cw, -1)
+    loss_cons = torch.sum(ent * cw, -1) / torch.clamp(n_cons, min=1.0)
     loss_cons = loss_cons * (Ts * Ts) / torch.clamp(batch["T"].to(ent.dtype), min=1.0)
     loss_cons = torch.where(n_cons > 0, loss_cons, torch.zeros_like(loss_cons))
 
@@ -262,23 +307,80 @@ def grad_views(params: Dict[str, Any], state: OptState) -> Dict[str, Any]:
     return out
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig, optimizer: AdamW, mesh=None) -> Callable:
+def reduce_grads(params: Dict[str, Any], cfg: ModelConfig, data: Group, model: Group, *,
+                 fsdp: bool) -> None:
+    """Complete each rank's gradients after a backward over a mesh, in place.
+    A leaf split over "data" (fsdp) got its sum in the backward's
+    reduce-scatter; every other leaf's gradient is summed over the `data`
+    group here (DDP).  Under a `model` group the per-head norms `q_norm` /
+    `k_norm` see only the rank's heads, so theirs is summed over the model
+    group too; every other replicated leaf already holds the whole gradient
+    (the `copy_in` before each column-parallel layer and the head sums the
+    input gradient)."""
+    specs = param_specs(cfg, fsdp=fsdp)
+    for name in sorted(params):
+        v = params[name]
+        leaves = [(v[k], specs[name][k], k) for k in sorted(v)] if isinstance(v, dict) \
+            else [(v, specs[name], name)]
+        for t, spec, leaf in leaves:
+            if DATA_AXIS not in spec:
+                reduce_sum(t.grad, data)
+            if leaf in ("q_norm", "k_norm"):
+                reduce_sum(t.grad, model)
+
+
+def data_slice(mesh: Optional[Mesh], B: int) -> slice:
+    """This rank's samples of a global batch of B: sample i on data index
+    i // (B / dp), as the JAX "data" sharding places a stacked batch."""
+    dp = 1 if mesh is None else mesh.shape[DATA_AXIS]
+    if B % dp:
+        raise ValueError(f"a global batch of {B} does not split over {dp} data ranks")
+    b = B // dp
+    d = 0 if mesh is None else mesh.index(DATA_AXIS)
+    return slice(d * b, (d + 1) * b)
+
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, optimizer: AdamW,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """(params, opt_state, rope, batch[, static_layout]) -> (params, opt_state,
-    metrics) for ONE packed sample (`prepare_sample` output as tensors, no
-    leading batch dim).  `static_layout` is required only with
+    metrics).  `static_layout` is required only with
     `tc.attn_impl == "splash"`.  The parameters and the optimizer state are
     updated in place (the JAX step donates its buffers) and returned; the
-    metrics are 0-d tensors on the parameters' device."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel / fsdp training over a mesh is not ported yet")
+    metrics are 0-d tensors on the parameters' device.
+
+    With `mesh=None`, `batch` is ONE packed sample (`prepare_sample` output as
+    tensors, no leading batch dim).  With a mesh every `batch` leaf carries a
+    leading global batch dim B (B % dp == 0) on every rank, `params` and
+    `opt_state` are this rank's fsdp blocks (`shard_params(..., fsdp=True)`,
+    then `optimizer.init`), and the step is the JAX `dp_step`: the loss and
+    the metrics are means over B.  The rank's loss is the sum of its samples'
+    losses over B; the reduce-scatter of each gathered weight's gradient and
+    the all-reduce of the others (`reduce_grads`) make its block gradient the
+    global mean's.  AdamW is elementwise, so the blocks' update equals the
+    whole weights'.  A model axis runs the layers tensor-parallel on the
+    rank's heads; splash attention takes B = 1."""
+    if mesh is not None and mesh.coords is None:
+        raise ValueError("this rank lies outside the mesh")
+    group = None if mesh is None else mesh.model_group
+    gather = None if mesh is None else fsdp_gather(cfg, mesh.data_group)
 
     def step(params, opt_state, rope, batch, static_layout=None):
+        if mesh is None:
+            batch = {k: v[None] for k, v in batch.items()}
+        B = batch["input_ids"].shape[0]
+        mine = data_slice(mesh, B)
         leaves = grad_views(params, opt_state)
-        loss, metrics = consistency_losses(leaves, cfg, tc, rope, batch, static_layout)
-        loss.backward()
+        totals, metrics = batch_losses(leaves, cfg, tc, rope,
+                                       {k: v[mine] for k, v in batch.items()}, static_layout,
+                                       group=group, gather=gather)
+        (totals.sum() / B).backward()
+        if mesh is not None:
+            reduce_grads(params, cfg, mesh.data_group, group, fsdp=True)
         optimizer.apply(opt_state)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["loss"] = loss.detach()
-        return params, opt_state, metrics
+        means = torch.stack([totals.detach().sum(), metrics["loss_ar"].detach().sum(),
+                             metrics["loss_consistency"].detach().sum()]) / B
+        if mesh is not None:
+            reduce_sum(means, mesh.data_group)
+        return params, opt_state, dict(zip(("loss", "loss_ar", "loss_consistency"), means))
 
     return step

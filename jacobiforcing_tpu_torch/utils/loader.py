@@ -140,13 +140,14 @@ def save_checkpoint(path: str, cfg: ModelConfig, params: Dict[str, Any]) -> None
 
 
 def load_checkpoint(
-    path: str, dtype=torch.bfloat16, device="cuda", mesh=None
+    path: str, dtype=torch.bfloat16, device="cuda", mesh=None, fsdp: bool = False
 ) -> Tuple[ModelConfig, Dict[str, Any]]:
     """Load config.json + *.safetensors from an HF checkpoint dir onto `device`.
 
     With a `mesh` (`parallel/mesh.py`) each tensor is cut to this rank's
-    share (`parallel/sharding.shard_params`) on the host and only the share
-    moves to `device`: the card never holds the full model."""
+    share (`parallel/sharding.shard_params`, fsdp blocks with `fsdp=True`) on
+    the host and only the share moves to `device`: the card never holds the
+    full model."""
     dev = resolve_device(device)
     with open(os.path.join(path, "config.json")) as f:
         hf_cfg = json.load(f)
@@ -161,7 +162,7 @@ def load_checkpoint(
     if mesh is None:
         return cfg, assemble_params(cfg, tensors, dtype, dev)
     host = assemble_params(cfg, tensors, dtype, torch.device("cpu"))
-    return cfg, move_params(shard_params(host, cfg, mesh), dev)
+    return cfg, move_params(shard_params(host, cfg, mesh, fsdp=fsdp), dev)
 
 
 def assemble_params(

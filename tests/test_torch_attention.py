@@ -362,7 +362,7 @@ def test_scaled_kernel_matches_plain_on_cuda(cuda, kind, dtype):
 # ---------------------------------------------------------------------------
 
 
-def tc_tile_emulation(q, segments, scale):
+def tc_tile_emulation(q, segments, scale, keep_f32=False):
     """The bf16-query kernels' arithmetic in plain torch: q [B, T, NH, D]
     bf16; `segments` is a list of (k, v [B, S, KH, D] bf16, vis [B, T, S]
     bool) walked in order, each in 64-key tiles from its key 0 (the paged
@@ -371,7 +371,7 @@ def tc_tile_emulation(q, segments, scale):
     the row max over the raw scores, scaled into the log2 domain, an online
     softmax with exp2 (of one fused multiply-add on the card), the
     probabilities rounded to bf16 before P.V, float32 accumulation; rows that
-    see no key give zeros."""
+    see no key give zeros.  The output is rounded to bf16 unless `keep_f32`."""
     B, T, NH, D = q.shape
     KH = segments[0][0].shape[2]
     qf = q.float().reshape(B, T, KH, NH // KH, D).permute(0, 2, 3, 1, 4)  # [B,KH,G,T,D]
@@ -394,7 +394,8 @@ def tc_tile_emulation(q, segments, scale):
             o = o * alpha[..., None] + p.bfloat16().float() @ vt
             m = m_new
     out = torch.where(l[..., None] > 0, o / l.clamp(min=1e-30)[..., None], torch.zeros(()))
-    return out.permute(0, 3, 1, 2, 4).reshape(B, T, NH, D).bfloat16()
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, T, NH, D)
+    return out if keep_f32 else out.bfloat16()
 
 
 def bf16_rule(out, ref):

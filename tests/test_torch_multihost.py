@@ -6,9 +6,10 @@ MASTER_ADDR, MASTER_PORT, LOCAL_RANK, LOCAL_WORLD_SIZE) and join through
 `initialize_multihost` with no arguments; `make_pod_mesh` keeps the model
 axis inside the node and `is_primary` names rank 0, as in the JAX test.  One
 tensor-parallel greedy generate (TP 2) on the tiny fp64 model equals the
-single-process one.  The `cuda` test runs the same two ranks on one card
-over gloo (NCCL refuses two ranks on one card), eagerly, through the
-kernels.
+single-process one, and so does one consistency training step on the pod
+mesh (TP 2, dense attention), block for block.  The `cuda` test runs the
+same two ranks on one card over gloo (NCCL refuses two ranks on one card),
+eagerly, through the kernels.
 
 Only the port is imported, so the card collects this file.  The ranks run
 it as a script (`child_main`).
@@ -71,6 +72,30 @@ def _generate(device, tp):
     return out
 
 
+def _train_step(mesh):
+    """One consistency step of the tiny fp64 model on a seeded packed row
+    (P 6, T 3, N 4), at `mesh` (None: one process): the updated weights."""
+    from jacobiforcing_tpu_torch.models.qwen import ModelConfig, init_params, rope_table
+    from jacobiforcing_tpu_torch.parallel.sharding import shard_params
+    from jacobiforcing_tpu_torch.train.consistency import (
+        TrainConfig, make_train_step, prepare_sample)
+    from jacobiforcing_tpu_torch.train.optim import AdamW
+
+    cfg = ModelConfig.tiny()
+    params = init_params(cfg, 0, device="cpu")
+    if mesh is not None:
+        params = shard_params(params, cfg, mesh, fsdp=True)
+    tc = TrainConfig(N=4, max_pairs=3, seq_bucket=32, ar_pair_bucket=32, cons_pair_bucket=32)
+    ids = np.random.RandomState(4).randint(1, 256, 30).tolist()
+    batch = {k: torch.as_tensor(v) for k, v in prepare_sample(ids, 6, 3, tc).items()}
+    if mesh is not None:  # the mesh step takes a global batch
+        batch = {k: v[None] for k, v in batch.items()}
+    opt = AdamW(1e-3, b1=0.9, b2=0.95)
+    state = opt.init(params)
+    params, _, _ = make_train_step(cfg, tc, opt, mesh)(params, state, rope_table(cfg), batch)
+    return params
+
+
 def child_main(workdir, device):
     sys.path.insert(0, ROOT)
     torch.set_num_threads(1)
@@ -99,6 +124,8 @@ def child_main(workdir, device):
     res["tokens"] = _generate(device, 2)
     res["launches"] = paged_attention_cuda.paged_attention_cuda.launches
     if device == "cpu":
+        # one training step on the pod mesh: the rank's blocks
+        res["train_blocks"] = {name: t.tolist() for name, t in _train_step(mesh)["layers"].items()}
         # the app under torchrun: the demo checkpoint loaded in shares
         from jacobiforcing_tpu_torch.apps import bench_generate
 
@@ -180,6 +207,25 @@ def test_bench_generate_under_torchrun(joined, tmp_path):
     assert joined[0]["bench"]["files"] == sorted(os.listdir(tmp_path))
     assert joined[0]["bench"]["generations"] == _generations(tmp_path)
     assert joined[1]["bench"]["files"] == []
+
+
+def test_train_step_under_torchrun(joined):
+    """One consistency step on `make_pod_mesh(tensor_parallel_size=2)`:
+    each rank's blocks of the layer weights == the single-process step's,
+    within 1e-12 (fp64; the row-parallel sums add in another order)."""
+    from jacobiforcing_tpu_torch.models.qwen import ModelConfig
+    from jacobiforcing_tpu_torch.parallel.mesh import Mesh
+    from jacobiforcing_tpu_torch.parallel.sharding import param_specs, shard_array
+
+    single = _train_step(None)["layers"]
+    specs = param_specs(ModelConfig.tiny(), fsdp=True)["layers"]
+    for rank, r in enumerate(joined):
+        mesh = Mesh(np.zeros((1, 2)), (0, rank), {"data": None, "model": None})
+        assert sorted(r["train_blocks"]) == sorted(single)
+        for name, t in single.items():
+            want = shard_array(t, specs[name], mesh).numpy()
+            np.testing.assert_allclose(np.asarray(r["train_blocks"][name]), want, rtol=0,
+                                       atol=1e-12, err_msg=name)
 
 
 def test_one_process_needs_no_world(monkeypatch):

@@ -287,8 +287,8 @@ def _cuda_case(dtype, layout=CUDA_LAYOUTS[0]):
 def _within(out, ref, scale=1e-5):
     """f32: |err| <= scale * max|ref|; bf16: per element 2^-5 * |ref| + 2^-7 *
     max|ref| of its row (the kernels round once, from a float32 sum) + 2^-9 *
-    max|ref| (the backward reads the saved output rounded to bf16, which shows
-    where the reference's dP - delta cancels exactly)."""
+    max|ref| (the backward rounds dS to bf16 before dS.K and dS^T.Q, which
+    shows where the reference's dP - delta cancels exactly)."""
     bf16 = out.dtype == torch.bfloat16
     out, ref = out.float(), ref.float()
     if bf16:
@@ -343,7 +343,8 @@ def tc_train_emulation(q, k, v, dout, layout, with_dq=False):
     with `with_dq` (out, dk, dv, dq).
     Forward: `tc_tile_emulation` (64-key tiles, online softmax in the log2
     domain, P rounded to bf16 before P.V), and the log-sum-exp of the scaled
-    scores.  dK/dV: delta = rowsum(dO * O) in float32; per chunk of a 64-key
+    scores; O rounded to bf16 and its residual O_lo = bf16(O - bf16(O)).
+    dK/dV: delta = rowsum(dO * (O + O_lo)) in float32; per chunk of a 64-key
     tile's query tiles (TileMap.chunks), per query tile of 64 token-major
     rows, S^T = K.Q^T and dP^T = V.dO^T from bf16 products in float32,
     P^T = exp2(scale_log2 S^T - lse log2 e) on the visible elements,
@@ -352,7 +353,7 @@ def tc_train_emulation(q, k, v, dout, layout, with_dq=False):
     once, both rounded to bf16.  dQ: per pair of query tiles over its
     pair_ent key tiles, ascending, a tile that is empty for a query tile
     skipped; S = Q.K^T and dP = dO.V^T, P from the lse as above, dS = P (dP -
-    delta) with delta from the bf16 O, dQ += bf16(dS).K in float32, scaled
+    delta) with that delta, dQ += bf16(dS).K in float32, scaled
     once, rounded to bf16."""
     from tests.test_torch_attention import tc_tile_emulation
 
@@ -365,7 +366,9 @@ def tc_train_emulation(q, k, v, dout, layout, with_dq=False):
                                                                 dtype=torch.float32)
     idx = torch.arange(L)
     mask = ta.train_mask(idx[:, None], idx[None, :], P, T, S, N, variant, window)
-    out = tc_tile_emulation(q[None], [(k[None], v[None], mask[None])], scale)[0]
+    out32 = tc_tile_emulation(q[None], [(k[None], v[None], mask[None])], scale, keep_f32=True)[0]
+    out = out32.bfloat16()
+    out_lo = (out32 - out.float()).bfloat16()
 
     # token-major rows per KV head: row r = token r // G, query head h * G + r % G
     rows = lambda x: x.float().reshape(L, KH, G, -1).permute(1, 0, 2, 3).reshape(KH, L * G, -1)
@@ -376,7 +379,7 @@ def tc_train_emulation(q, k, v, dout, layout, with_dq=False):
     m = torch.where(torch.isinf(m), torch.zeros(()), m)
     lse_sum = torch.where(vis, torch.exp(s_all * scale - m), torch.zeros(())).sum(-1)
     lse = torch.where(lse_sum > 0, m[..., 0] + torch.log(lse_sum), torch.zeros(()))
-    delta = (dor * rows(out)).sum(-1)  # [KH, rows]
+    delta = (dor * (rows(out) + rows(out_lo))).sum(-1)  # [KH, rows]
 
     tm = ta.classify_tiles(L, P, T, S, N, variant, window, G, key_tile=ta.TC_KEY_TILE)
     kf, vf = k.float().permute(1, 0, 2), v.float().permute(1, 0, 2)  # [KH, L, D]
@@ -462,7 +465,7 @@ def test_tensor_core_training_numerics_within_the_bf16_rule(case, variant, windo
 @pytest.mark.parametrize("variant,window", VARIANTS)
 def test_tensor_core_dq_numerics_within_the_bf16_rule(case, variant, window):
     """The emulated tensor-core dQ (the forward's pair lists, delta from the
-    bf16 O, dS rounded to bf16 before dS.K) held to autograd of the plain
+    bf16 O and its residual, dS rounded to bf16 before dS.K) held to autograd of the plain
     version in float32 on the same bf16 inputs under chip_smoke's bf16 rule
     (`check_grad`); rows that see nothing get zero dq."""
     L, P, T, S, N, KH, G, D = case
@@ -477,3 +480,23 @@ def test_tensor_core_dq_numerics_within_the_bf16_rule(case, variant, window):
     assert dq.dtype == torch.bfloat16 and tuple(dq.shape) == tuple(q.shape)
     assert _within(dq, torch.from_numpy(ref[1]))
     assert not bool(dq[~live].any())
+
+
+def test_tensor_core_dq_at_one_kv_head_within_the_bf16_rule():
+    """One KV head of two query heads, D 64 (the demo model's heads at TP 2):
+    the inputs chip_smoke.make_train_case draws for seed 9000 on a 1024-token
+    row.  With delta from the bf16 O alone the emulated dQ (and the kernel's,
+    on an H100) missed the bf16 rule at token 1, a row that sees two keys,
+    whose exact dP - delta terms cancel; delta from O + O_lo keeps it within
+    the rule."""
+    L, P, T, S, N, KH, G, D = 1024, 100, 14, 996, 32, 1, 2, 64
+    r = np.random.RandomState(9000)
+    f = lambda *shape: torch.from_numpy(r.randn(*shape).astype(np.float32)).bfloat16()
+    live = torch.from_numpy(_live_rows(L, P, T, S, N))
+    dout = f(L, KH * G, D) * live[:, None, None].bfloat16()
+    q, k, v = f(L, KH * G, D), f(L, KH, D), f(L, KH, D)
+    dq = tc_train_emulation(q, k, v, dout, (P, T, S, N, "single", 4), with_dq=True)[3]
+    ref = _port_grads(ta.train_attention_ref, q.float().numpy(), k.float().numpy(),
+                      v.float().numpy(), dout.float().numpy(), prompt_len=P, T_pairs=T,
+                      seq_len=S, N=N, variant="single", window_size=4)
+    assert _within(dq, torch.from_numpy(ref[1]))

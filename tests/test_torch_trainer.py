@@ -282,18 +282,6 @@ def test_three_train_steps_match_optax():
     assert all(s["exp_avg"].dtype == torch.float64 for s in tstate.opt.state.values())
 
 
-def test_make_train_step_with_a_mesh_raises():
-    _, _, tcfg, _ = _pair()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tc.make_train_step(tcfg, tc.TrainConfig(), toptim.AdamW(1e-3), mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tsft.make_sft_train_step(tcfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ttrainer.train(ttrainer.TrainerArgs(), model_cfg=tcfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ttrainer.train(ttrainer.TrainerArgs(global_batch=4), model_cfg=tcfg, device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # counterparts of tests/test_trainer.py (f32, like the originals)
 # ---------------------------------------------------------------------------
@@ -392,6 +380,39 @@ def test_trainer_loop_and_resume(tmp_path):
         str(tmp_path / "out" / "checkpoint-6"), cfg, toptim.AdamW(1e-4, b1=0.9, b2=0.95), "cpu")
     assert (step, state.count) == (6, 6)
     assert all(float(s["step"]) == 6 for s in state.opt.state.values())
+
+
+def test_resumed_run_continues_the_data_order(tmp_path):
+    """One process: stopped at step 2 and resumed to step 6 equals a run of 6
+    steps bit for bit, losses and weights (the schedules of 2 and 6 steps
+    agree on the first two).  Resume skips the batches the checkpoint
+    consumed (the JAX trainer starts again at epoch 0's first row), and goes
+    on across the epoch boundary after step 4 of these 4 rows."""
+    cfg = tq.ModelConfig.tiny(dtype=torch.float32)
+    rng = np.random.RandomState(4)
+    ds = _Rows([{"input_ids": _make_row(rng, vocab=256), "prompt_len": P, "T": T}
+                for _ in range(4)])
+    init = tq.init_params(cfg, 0, device="cpu")
+
+    def run(out, max_steps, resume):
+        args = ttrainer.TrainerArgs(output_dir=str(tmp_path / out), max_new_tokens=N,
+                                    seq_bucket=64, log_steps=1, learning_rate=1e-3,
+                                    warmup_steps=2, max_steps=max_steps, save_steps=2,
+                                    resume=resume)
+        params = {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v.clone())
+                  for k, v in init.items()}
+        return ttrainer.train(args, model_cfg=cfg, params=params, dataset=ds, device="cpu",
+                              log_fn=lambda *_: None)
+
+    whole = run("whole", 6, False)
+    run("parts", 2, False)
+    resumed = run("parts", 6, True)
+    assert resumed["step"] == 6
+    assert [h["loss"] for h in resumed["history"]] == [h["loss"] for h in whole["history"][2:]]
+    for k, v in whole["params"].items():
+        for n, t in (v.items() if isinstance(v, dict) else [(k, v)]):
+            got = resumed["params"][k][n] if isinstance(v, dict) else resumed["params"][k]
+            assert torch.equal(got, t), n
 
 
 def test_trainer_variants_e2e(tmp_path):
