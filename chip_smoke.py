@@ -5,11 +5,15 @@
 
     python3 chip_smoke.py kernel,train_kernel   # the kernels against their plain versions only
     python3 chip_smoke.py int4                  # the int4 kernels and their path alone
+    python3 chip_smoke.py apps                  # the chat / grid / demo-trainer / legacy apps
     python3 chip_smoke.py train_mesh            # DP / fsdp and TP training, two ranks
 
     # the same phases from a parent tree (P) and this one (C) in turns, P C C P,
     # on one card: training kernel times, steps/s and step profiles side by side
     python3 chip_smoke.py compare build/parent train_kernel,train
+    # kernel 3's f32 times alone (`train_f32_time` uses only the wrappers, so
+    # this script copied into a parent tree times that tree's kernels)
+    python3 chip_smoke.py compare build/parent train_f32_time
 
 Phases (each prints its lines; any failure exits non-zero and prints no
 result line):
@@ -30,10 +34,11 @@ result line):
      call == the rows of a T=N call and a row of a B=8 call == the same row
      at B=1; times at T = 64 / 128 / 384.  Every timed shape prints kernel,
      plain-version and SDPA times beside the bound and is held to `check`.
-     Both kernels again on a narrow cache (fp8 e4m3 and int8 with per-row
-     scales, K/V magnitudes ~600): cases against the plain version, the same
-     bitwise checks, bitwise equality of an in-flight fake-quantized block
-     with its committed copy, and times with an fp8 cache.  The int4
+     Both kernels again on a narrow cache (fp8 e4m3, fp8 e5m2 and int8 with
+     per-row scales, K/V magnitudes ~600): cases against the plain version,
+     the same bitwise checks, bitwise equality of an in-flight
+     fake-quantized block with its committed copy, and times with an e4m3
+     and an e5m2 cache.  The int4
      dequant-matmul kernel against its plain version in f32 and bf16 at the
      JAX test's shape, ragged M and K and the four Qwen2.5-7B linear shapes
      at M = 4 / 256 / 1536 (tolerances in `check_int4`), its times beside the
@@ -52,7 +57,8 @@ result line):
      16/32/64 (tolerances in `check` and `check_grad`); gradients bitwise equal
      across two runs; rows that see nothing zero.  Times at L 4096 and
      L 16384 (Qwen2.5-7B heads, bf16), each kernel beside its bound, the plain
-     version and SDPA under a dense boolean mask, forward and backward.
+     version and SDPA under a dense boolean mask, forward and backward; the
+     f32 kernels' times at the demo's heads, L 1024 and 4096.
      `compare PARENT PHASES` runs the phases from a parent tree and this one
      in turns and prints their times, steps/s and step profiles side by side.
   4. `demo`: the trained demo checkpoint `assets/tpf_demo_n32_v7` in f32
@@ -60,9 +66,10 @@ result line):
      `mr` (auto-policy off, then on) on all 64 held-out prompts.  All token
      streams must be identical, 2033 tokens, 64/64 EOS, and with the policy
      off every MR tier (full / no-candidate / RA-only) must have run.  Then
-     the same checkpoint served quantized (int8 weights, W8A8, an fp8 and an
-     int8 KV cache): inside each engine `jacobi` == `ar` == `mr`, counts
-     printed beside the JAX package's CPU runs.
+     the same checkpoint served quantized (int8 weights, W8A8, an fp8 e4m3,
+     an int8 and an fp8 e5m2 KV cache): inside each engine `jacobi` == `ar`
+     == `mr`, counts printed beside the JAX package's CPU runs (e5m2's must
+     equal its anchor, 2002 tokens, 64/64 EOS).
   5. `sampling`: the rejection-sampling and on-policy decoders on the demo
      checkpoint in f32: non-greedy top_k=1 == `ar` on the 64 prompts (2033
      tokens, 64/64 EOS); greedy on-policy collection of the 64 prompts
@@ -74,6 +81,16 @@ result line):
      stream; `apps/validate_learning` at its defaults.  Every run zeroes the
      kernel counts first and fails unless the paged kernel ran and no plain
      attention ran on CUDA.
+  5b. `apps`: `chat_web.serve` on the demo with a byte-level tokenizer, 4
+     POSTs to /generate over HTTP whose streamed tokens == blocking
+     generation; `jacobi_stream_chat` streamed == blocking; `run_grid` over
+     n {16, 32} x K {1, 2} x r {0.8} x pool {1, 4} (MR points launch kernel
+     2) and `analyze_grid` on its CSV; `train_tpf_demo` at its default
+     geometry cut to 2000 SFT steps and one round of two epochs, into a
+     temporary directory: aggregate TPF >= 2 on its held-out prompts; the
+     legacy CLLM step, 3 steps at the demo widths on the card == the host
+     (f32 within 1e-5, f64 within 1e-9) and one step at Qwen2.5-7B widths,
+     4 layers, bf16, with its peak memory.
   6. `full`: Qwen2.5-7B widths with random bf16 weights, 4 requests of
      256-1024 random prompt tokens through `LLM.generate`: prefill, AR,
      Jacobi, MR (policy off), non-greedy at temperature 0.7 (the
@@ -95,8 +112,12 @@ result line):
      requests) on the three engines with random bf16 weights, and on
      graph-async with the app's W8A8 model and an fp8 KV cache; each
      result a JSON line.  Every earlier phase also serves through the
-     default engine.
-  8. `full_quant`: Qwen2.5-7B widths with random int8 weights
+     default engine.  The Python and the native block manager in turns (P N
+     N P) on the demo's 64 prompts in one `generate`: tokens and every
+     allocate / grow / free call's page table equal, iterations/s, wall and
+     block-manager ms per engine step.
+  8. `full_quant`: Qwen2.5-7B widths, the `full` phase's bf16 weights with
+     an fp8 e5m2 KV cache under `jacobi` and `mr`; then random int8 weights
      (`init_quantized_params`), the same 4 requests: W8A8 with an fp8 KV cache
      under `ar`, `jacobi` and `mr`, then weight-only int8 with an int8 KV
      cache under `jacobi`; launch counts as in `full`, tok/s, iterations/s,
@@ -144,7 +165,9 @@ result line):
      runs with a fault planted in the two ranks (the update not written
      back; one leaf's gradient not summed over the data ranks) must fail
      those gates.  `[train-exact]`: the (1, 2) configuration in one process
-     with kernel 3 and with the plain attention, against float64.  (b)
+     with kernel 3 and with the plain attention, against float64, and kernel
+     3's step-3 loss error and sign-flip shares against the plain
+     attention's (aim: within 10x and 2x).  (b)
      Qwen2.5-7B widths, all 28 layers, bf16, remat: (2, 1) fsdp dense, one
      packed row of 2048 tokens per rank, and (1, 2) splash (kernel 3 on 2 KV
      heads per rank), one row of 4096 tokens: 3 steps each with finite
@@ -159,6 +182,7 @@ repository, it exits non-zero.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -174,7 +198,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense tensor-core bf16; fp32 FMA
-KV_KINDS = {"fp8": torch.float8_e4m3fn, "int8": torch.int8}  # narrow KV storage with row scales
+# narrow KV storage with row scales
+KV_KINDS = {"fp8": torch.float8_e4m3fn, "int8": torch.int8, "e5m2": torch.float8_e5m2}
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEMO = os.path.join(REPO, "assets", "tpf_demo_n32_v7")
 # csrc/<name>.cu
@@ -188,9 +213,11 @@ _SPEC = dict(source="jacobiforcing_tpu_torch/csrc/spec_attention.cu",
 KERNELS = {
     "paged_attention": _PAGED,
     "spec_attention": _SPEC,
-    # the same kernels on an fp8 e4m3 cache with per-row scales
+    # the same kernels on an fp8 e4m3 / e5m2 cache with per-row scales
     "paged_attention_fp8": _PAGED,
     "spec_attention_fp8": _SPEC,
+    "paged_attention_e5m2": _PAGED,
+    "spec_attention_e5m2": _SPEC,
     "int4_matmul": dict(source="jacobiforcing_tpu_torch/csrc/int4_matmul.cu",
                         replaces="jacobiforcing_tpu/ops/pallas/int4_matmul.py:53"),
     "train_attention_fwd": _TRAIN,
@@ -401,7 +428,8 @@ def kernel_design():
     from jacobiforcing_tpu_torch.ops import paged_attention_cuda as pac
     from jacobiforcing_tpu_torch.ops import spec_attention_cuda as sac
 
-    short = {"float32": "f32", "bfloat16": "bf16", "float8_e4m3fn": "fp8", "int8": "int8"}
+    short = {"float32": "f32", "bfloat16": "bf16", "float8_e4m3fn": "fp8", "int8": "int8",
+             "float8_e5m2": "e5m2"}
     for name, variants in (("paged_attention", pac.variants()), ("spec_attention", sac.variants())):
         parts = []
         for tcore in (1, 0):
@@ -447,12 +475,13 @@ def phase_kernel(timing):
                 if not ok:
                     raise AssertionError(f"kernel disagrees with the plain version: {tag}")
 
-    # the same on a narrow cache with per-row scales (fp8 e4m3, int8)
+    # the same on a narrow cache with per-row scales (fp8 e4m3 and e5m2, int8)
     for kv in KV_KINDS:
         for dname, dtype in dtypes.items():
             for sname, KH, G, D, page in shapes:
-                for B, L, ctx, prefill in [(1, 1, 4096, False), (4, 64, 4096, False),
-                                           (8, 32, 2048, False), (1, 1024, 1024, True)]:
+                for B, L, ctx, prefill in [(1, 1, 4096, False), (4, 1, 4096, False),
+                                           (4, 64, 4096, False), (8, 32, 2048, False),
+                                           (1, 1024, 1024, True)]:
                     c = make_case(B, L, KH, G, D, page, ctx, dtype, seed=n,
                                   n_pad=(1 if B >= 4 else 0), full=prefill, kv=kv)
                     n += 1
@@ -491,10 +520,11 @@ def phase_kernel(timing):
                 raise AssertionError("AR row and Jacobi row differ bitwise")
 
     # times at the main path's shapes (Qwen2.5-7B heads, bf16, page 256), with
-    # a bf16 cache and with an fp8 cache: a Jacobi block, AR decode, prefill
-    times = {"decode": (4, 64, 1024, None), "ar_decode": (4, 1, 1024, None),
-             "prefill": (1, 1024, 1024, None), "decode_fp8": (4, 64, 1024, "fp8"),
-             "ar_decode_fp8": (4, 1, 1024, "fp8"), "prefill_fp8": (1, 1024, 1024, "fp8")}
+    # a bf16 cache and with an fp8 e4m3 / e5m2 cache: a Jacobi block, AR
+    # decode, prefill
+    times = {f"{name}{'_' + kv if kv else ''}": (B, L, ctx, kv) for kv in (None, "fp8", "e5m2")
+             for name, (B, L, ctx) in {"decode": (4, 64, 1024), "ar_decode": (4, 1, 1024),
+                                       "prefill": (1, 1024, 1024)}.items()}
     for name, (B, L, ctx, kv) in times.items():
         c = make_case(B, L, 4, 7, 128, 256, ctx, torch.bfloat16, seed=2000, full=True, kv=kv)
         ms = time_ms(lambda: run_kernel(c))
@@ -747,7 +777,8 @@ def phase_spec_kernel(timing):
                                 raise AssertionError(
                                     f"spec kernel disagrees with the plain version: {tag}")
 
-    # the same on a narrow committed cache with per-row scales (fp8 e4m3, int8)
+    # the same on a narrow committed cache with per-row scales (fp8 e4m3 and
+    # e5m2, int8)
     for kv in KV_KINDS:
         for dname, dtype in dtypes.items():
             for sname, KH, G, D, page in shapes:
@@ -797,8 +828,8 @@ def phase_spec_kernel(timing):
     two_sources_check()
 
     # times at the MR path's shapes (Qwen2.5-7B heads, bf16, page 256, B=4, ctx 1024, N=64),
-    # with a bf16 cache and with an fp8 cache
-    times = {f"{name}{'_fp8' if kv else ''}": (K, C, kv) for kv in (None, "fp8")
+    # with a bf16 cache and with an fp8 e4m3 / e5m2 cache
+    times = {f"{name}{'_' + kv if kv else ''}": (K, C, kv) for kv in (None, "fp8", "e5m2")
              for name, (K, C) in {"T64": (1, 0), "T128": (2, 0), "T384": (2, 4)}.items()}
     for name, (K, C, kv) in times.items():
         c = make_spec_case(4, 64, K, C, 4, 7, 128, 256, 1024, torch.bfloat16, seed=6000, full=True,
@@ -1138,17 +1169,21 @@ def train_bounds(c):
     written once; 2*D operations per product, visible pair and query head:
     forward QK^T and PV; dQ recomputes S, takes dP and dQ; dK/dV recomputes
     S, takes dP, dV and dK.  bf16 adds out_lo: written by the forward, read
-    by dQ."""
+    by dQ, which also reads out (f32's dQ takes delta from P and dP, reads no
+    out, and hands dK/dV sigma beside delta)."""
     q = c["q"]
     L, NH, D = q.shape
     KH = c["k"].shape[1]
     it = q.element_size()
     qb, kb, rowb = L * NH * D * it, L * KH * D * it, L * NH * 4
     lo = qb if q.dtype == torch.bfloat16 else 0
+    sig = rowb if q.dtype == torch.float32 else 0  # f32: sigma beside delta
     pairs = train_pairs(c, NH)
     work = {"train_attention_fwd": (2 * qb + lo + 2 * kb + rowb, 2),  # q,k,v -> out,lse(,lo)
-            "train_attention_dq": (4 * qb + lo + 2 * kb + 2 * rowb, 3),  # q,k,v,out(,lo),dO,lse -> dq,delta
-            "train_attention_dkdv": (2 * qb + 4 * kb + 2 * rowb, 4)}  # q,k,v,dO,lse,delta -> dk,dv
+            # q,k,v(,out,lo),dO,lse -> dq,delta(,sigma)
+            "train_attention_dq": (3 * qb + 2 * lo + 2 * kb + 2 * rowb + sig, 3),
+            # q,k,v,dO,lse,delta(,sigma) -> dk,dv
+            "train_attention_dkdv": (2 * qb + 4 * kb + 2 * rowb + sig, 4)}
     out = {}
     for name, (nbytes, products) in work.items():
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1160,10 +1195,10 @@ def train_bounds(c):
 def train_kernel_design():
     """The `[kernel-design]` line of the training kernels: which tile each
     (kernel, dtype, D) variant runs, with its registers, local bytes and
-    shared memory.  Fails unless bf16 runs the tensor-core forward, dQ (delta
-    folded in: no bf16 delta kernel) and dK/dV, float32 the fp32 forward,
-    delta, dQ and dK/dV, and unless every bf16 variant (the reduce kernel
-    included) uses no local memory."""
+    shared memory.  Fails unless bf16 runs the tensor-core forward, dQ and
+    dK/dV, float32 the fp32 forward, dQ and dK/dV (both dQ kernels take delta
+    themselves: there is no delta kernel), and unless every bf16 variant (the
+    reduce kernel included) uses no local memory."""
     from jacobiforcing_tpu_torch.ops import train_attention_cuda as tac
 
     variants = tac.variants()
@@ -1176,9 +1211,9 @@ def train_kernel_design():
     log("[kernel-design] train_attention: " + "; ".join(cells))
     wrong = [v for v in variants
              if v["tensor_cores"] != (v["dtype"] == "bfloat16" and v["kernel"] in ("fwd", "dq", "dkdv"))
-             or (v["dtype"] == "bfloat16" and (v["local_bytes"] or v["kernel"] == "delta"))]
+             or v["kernel"] == "delta" or (v["dtype"] == "bfloat16" and v["local_bytes"])]
     have = {(v["kernel"], v["dtype"]) for v in variants}
-    want = {(n, "float32") for n in ("fwd", "dq", "dkdv", "delta")}
+    want = {(n, "float32") for n in ("fwd", "dq", "dkdv")}
     want |= {(n, "bfloat16") for n in ("fwd", "dq", "dkdv", "dkdv_reduce")}
     if wrong or not want <= have:
         raise AssertionError(f"train_attention: a variant runs the wrong tile, a bf16 variant "
@@ -1235,9 +1270,40 @@ def phase_train_kernel(timing):
                     check_train_case(dname, dtype, sname, KH, G, D, variant, lay, seed=7000 + n)
                     n += 1
 
-    # times at the trainer's shapes: Qwen2.5-7B heads, bf16, `single`, N=32
+    # times at the trainer's shapes: Qwen2.5-7B heads, bf16, `single`, N=32;
+    # the f32 kernels at the demo's heads
     for name, (L, P, T) in {"L4096": (4096, 512, 56), "L16384": (16384, 1024, 240)}.items():
         train_kernel_times(timing, name, L, P, T, KH=4)
+    train_kernel_f32_times(timing)
+
+
+def train_kernel_f32_times(timing):
+    """Kernel 3's float32 kernels (forward, dQ, dK/dV) timed at the demo
+    model's heads (KH 2, G 2, D 64; the f32 training path) on packed rows of
+    1024 and 4096 tokens (`single`, N 32) beside their bounds.  Uses only the
+    wrappers' interface, so a parent tree's kernels time the same way
+    (`compare PARENT train_f32_time`).  Records timing[f"{kernel}_f32_L{L}"]."""
+    from jacobiforcing_tpu_torch.ops import train_attention_cuda as tac
+
+    for L, P, T in ((1024, 128, 14), (4096, 512, 56)):
+        c = make_train_case(L, P, T, L, 32, 2, 2, 64, torch.float32, "single", 4, seed=8100)
+        q, k, v, dout = c["q"], c["k"], c["v"], c["dout"]
+        layout = tuple(c["layout"].values())
+        out, lse, out_lo = tac.train_attention_fwd_cuda(q, k, v, layout)
+        dq, delta = tac.train_attention_dq_cuda(q, k, v, out, lse, dout, layout, out_lo)
+        ms = {
+            "train_attention_fwd": time_ms(lambda: tac.train_attention_fwd_cuda(q, k, v, layout)),
+            "train_attention_dq": time_ms(
+                lambda: tac.train_attention_dq_cuda(q, k, v, out, lse, dout, layout, out_lo)),
+            "train_attention_dkdv": time_ms(
+                lambda: tac.train_attention_dkdv_cuda(q, k, v, lse, delta, dout, layout)),
+        }
+        bounds = train_bounds(c)
+        for kname, t in ms.items():
+            bms, by = bounds[kname]
+            log(f"[train-kernel-time f32] {kname} L={L}: {t:.4f} ms, bound {bms:.5f} ms ({by}); "
+                f"P={P} T={T} N=32 single f32 D=64 KH=2 G=2")
+            timing[f"{kname}_f32_L{L}"] = dict(ms=t, bound_ms=bms, bound_by=by)
 
 
 def phase_train_tp_kernel(timing):
@@ -1411,9 +1477,10 @@ MR_STATS = ("mr_full", "mr_nocand", "mr_ra_only", "mr_single")
 def demo_llm(meta, **kw):
     from jacobiforcing_tpu_torch.engine.llm import LLM
 
-    return LLM(model=DEMO, device=DEV, dtype=torch.float32, kvcache_page_size=16,
-               max_model_len=512, jacobi_chunk_tokens=64, eos=int(meta["eos"]),
-               prefill_token_buckets=(32, 64, 128, 256, 512), num_kv_pages=1024, **kw)
+    kw = dict(dict(kvcache_page_size=16, max_model_len=512, jacobi_chunk_tokens=64,
+                   eos=int(meta["eos"]), prefill_token_buckets=(32, 64, 128, 256, 512),
+                   num_kv_pages=1024), **kw)
+    return LLM(model=DEMO, device=DEV, dtype=torch.float32, **kw)
 
 
 def phase_demo(counter, launches_out):
@@ -1498,17 +1565,22 @@ DEMO_QUANT_ANCHORS = {
     "fp8": dict(kw=dict(kv_cache_dtype="fp8"), tokens=2026, eos=64,
                 first16=[18, 43, 23, 21, 25, 51, 39, 19, 28, 53, 20, 17, 19, 17, 20, 31]),
     "int8kv": dict(kw=dict(kv_cache_dtype="int8"), tokens=2033, eos=64, first16=_LENS16),
+    # reached through kv_dtype= alone, as in the JAX engine; its count is a gate
+    "e5m2": dict(kw=dict(kv_dtype=torch.float8_e5m2), tokens=2002, eos=64,
+                 first16=[18, 43, 23, 21, 25, 51, 39, 19, 28, 47, 22, 17, 22, 17, 20, 31],
+                 gate=True),
 }
 
 
 def phase_demo_quant(counter, launches_out):
     """The demo checkpoint in f32 served quantized: int8 and W8A8 weights, an
-    fp8 and an int8 KV cache (four engines).  Inside each: greedy Jacobi on
-    all 64 held-out prompts, `ar` and `mr` (K=2, pool 4, policy off) on the
-    first 16; the three streams must be identical token for token (gate).
-    Tokens, EOS count and TPF are printed beside the JAX package's CPU run of
-    the same configuration; a count that differs is reported with the first
-    prompt whose length differs."""
+    fp8 e4m3, an int8 and an fp8 e5m2 KV cache (five engines).  Inside each:
+    greedy Jacobi on all 64 held-out prompts, `ar` and `mr` (K=2, pool 4,
+    policy off) on the first 16; the three streams must be identical token
+    for token (gate).  Tokens, EOS count and TPF are printed beside the JAX
+    package's CPU run of the same configuration; a count that differs is
+    reported with the first prompt whose length differs, and fails the phase
+    where the anchor is a gate (e5m2)."""
     from jacobiforcing_tpu_torch.config import SamplingParams
 
     with open(os.path.join(DEMO, "tpf_demo.json")) as f:
@@ -1558,6 +1630,9 @@ def phase_demo_quant(counter, launches_out):
                                   if a != b), None)
                     line += (f" (first prompt of the first 16 whose length differs: {first}; "
                              f"lengths {lens} against {anchor['first16']})")
+                    if anchor.get("gate"):
+                        faults.append(f"{name}: {toks} tokens, {n_eos}/64 EOS against the JAX "
+                                      f"anchor {anchor['tokens']}, {anchor['eos']}/64")
             log(line)
             if launches["paged_attention"] <= 0 or counter.n:
                 faults.append(f"{name} {run} did not go through the kernels alone")
@@ -1569,7 +1644,7 @@ def phase_demo_quant(counter, launches_out):
                 f"(rows differing: {diff})")
             if diff:
                 faults.append(f"{name}: jacobi and {other} streams differ in rows {diff}")
-        assert eng.kv.scaled == ("kv_cache_dtype" in anchor["kw"])
+        assert eng.kv.scaled == (name in ("fp8", "int8kv", "e5m2"))
         llm.exit()
     if faults:
         raise AssertionError("quantized demo engines: " + "; ".join(faults))
@@ -1917,12 +1992,12 @@ def full_width_prompts(cfg):
 
 def phase_full_width(counter, launches_out):
     from jacobiforcing_tpu_torch.engine.llm import LLM
-    from jacobiforcing_tpu_torch.models.qwen import ModelConfig, init_params
+    from jacobiforcing_tpu_torch.models.qwen import ModelConfig
 
     torch.cuda.reset_peak_memory_stats()
     cfg = ModelConfig()
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    params = full_width_params(cfg)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for v in params.values()
                    for t in (v.values() if isinstance(v, dict) else [v]))
@@ -1947,17 +2022,32 @@ def phase_full_width(counter, launches_out):
     return params
 
 
-def phase_full_quant(counter, launches_out):
-    """Qwen2.5-7B widths served quantized: int8 weights from
-    `init_quantized_params` (seed 0); W8A8 with an fp8 KV cache under `ar`,
-    `jacobi` and `mr`, then weight-only int8 with an int8 KV cache under
-    `jacobi`.  The launches of each path are kept under `w8a8_fp8_<path>` and
-    `int8_int8_<path>`.  Everything is freed at the end."""
-    from jacobiforcing_tpu_torch.engine.llm import LLM
+def full_width_params(cfg):
+    """Random bf16 weights of `cfg` on the card, from seed 0."""
+    from jacobiforcing_tpu_torch.models.qwen import init_params
+
+    return init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+
+
+def phase_full_quant(counter, launches_out, params=None):
+    """Qwen2.5-7B widths with narrow storage.  First the bf16 weights of the
+    `full` phase (`params`, or the same draw) with an fp8 e5m2 KV cache under
+    `jacobi` and `mr`; then int8 weights from `init_quantized_params` (seed
+    0): W8A8 with an fp8 e4m3 KV cache under `ar`, `jacobi` and `mr`, then
+    weight-only int8 with an int8 KV cache under `jacobi`.  The launches of
+    each path are kept under `bf16_e5m2_<path>`, `w8a8_fp8_<path>` and
+    `int8_int8_<path>`.  Everything this phase made is freed at the end."""
     from jacobiforcing_tpu_torch.models.qwen import ModelConfig
     from jacobiforcing_tpu_torch.ops.quant import init_quantized_params
 
     cfg = ModelConfig()
+    prompts = full_width_prompts(cfg)
+    sps = {k: v for k, v in full_width_sps().items() if k in GREEDY_PATHS}
+    bf16 = params if params is not None else full_width_params(cfg)
+    full_quant_engine(counter, launches_out, "bf16_e5m2", cfg, bf16, prompts,
+                      dict(kv_dtype=torch.float8_e5m2), {k: sps[k] for k in ("jacobi", "mr")},
+                      profile=False)
+    del bf16
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1970,29 +2060,39 @@ def phase_full_quant(counter, launches_out):
     log(f"[full-quant] Qwen2.5-7B widths: random int8 weights with bf16 scales, "
         f"{nbytes / 2**30:.2f} GiB, in {time.perf_counter() - t0:.1f}s ({held:.2f} GiB held by "
         f"earlier phases)")
-    prompts = full_width_prompts(cfg)
-    sps = {k: v for k, v in full_width_sps().items() if k in GREEDY_PATHS}
     engines = [("w8a8_fp8", dict(quantization="w8a8", kv_cache_dtype="fp8"), sps),
                ("int8_int8", dict(quantization="int8", kv_cache_dtype="int8"),
                 {"jacobi": sps["jacobi"]})]
     for tag, kw, paths in engines:
-        llm = LLM(device="cuda", model_cfg=cfg, params=params, num_kv_pages=512,
-                  kvcache_page_size=256, eos=-1, jacobi_mr_auto_policy=False, **kw)
-        kvc = llm.engine.kv
-        pool = sum(t.numel() * t.element_size() for t in (kvc.k, kvc.v, kvc.k_scale, kvc.v_scale))
-        log(f"[full-quant] {tag}: KV pool of 512 pages x 256 slots stored as {kvc.k.dtype} with "
-            f"float32 row scales, {pool / 2**30:.2f} GiB; act_quant={llm.engine.model_cfg.act_quant}")
-        shapes = {}
-        _, launches, _ = serve_paths(f"full-quant {tag}", llm, prompts, paths, counter, shapes)
-        for path, counts in launches.items():
-            launches_out[f"{tag}_{path}"] = counts
-        launches_out.update({f"{tag}_{k}": v for k, v in shapes.items()})
+        full_quant_engine(counter, launches_out, tag, cfg, params, prompts, kw, paths)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def full_quant_engine(counter, launches_out, tag, cfg, params, prompts, kw, paths, profile=True):
+    """One engine of `phase_full_quant`: its KV pool, `serve_paths` over
+    `paths` (launches kept under `<tag>_<path>`) and, with `profile`, a
+    profiled decode of each non-AR path."""
+    from jacobiforcing_tpu_torch.engine.llm import LLM
+
+    llm = LLM(device=DEV, model_cfg=cfg, params=params, num_kv_pages=512,
+              kvcache_page_size=256, eos=-1, jacobi_mr_auto_policy=False, **kw)
+    kvc = llm.engine.kv
+    pool = sum(t.numel() * t.element_size() for t in (kvc.k, kvc.v, kvc.k_scale, kvc.v_scale))
+    log(f"[full-quant] {tag}: KV pool of 512 pages x 256 slots stored as {kvc.k.dtype} with "
+        f"float32 row scales, {pool / 2**30:.2f} GiB; act_quant={llm.engine.model_cfg.act_quant}")
+    shapes = {}
+    _, launches, _ = serve_paths(f"full-quant {tag}", llm, prompts, paths, counter, shapes)
+    for path, counts in launches.items():
+        launches_out[f"{tag}_{path}"] = counts
+    launches_out.update({f"{tag}_{k}": v for k, v in shapes.items()})
+    if profile:
         for name in paths:
             if name != "autoregressive":
                 profile_decode(llm, prompts, name, paths[name], tag=f"{tag} ")
-        llm.exit()
-        del llm, kvc
-    del params
+    llm.exit()
+    del llm, kvc
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2326,16 +2426,397 @@ def engine_bench(cfg, params):
         log(json.dumps({"mode": mode, **out}))
 
 
+class RecordingBlockManager:
+    """Delegates to an engine's block manager and records every call that
+    allocates, grows or frees: (call, sequence by order of first appearance,
+    arguments, result, the sequence's page table after it), and the host
+    seconds spent inside the manager."""
+
+    def __init__(self, bm):
+        self.bm, self.events, self.seconds, self._ids = bm, [], 0.0, {}
+
+    def __getattr__(self, name):  # page_size, num_free_pages, ...
+        return getattr(self.bm, name)
+
+    def _call(self, name, seq, *args, record=True):
+        t0 = time.perf_counter()
+        out = getattr(self.bm, name)(seq, *args)
+        self.seconds += time.perf_counter() - t0
+        if record:
+            sid = self._ids.setdefault(seq.seq_id, len(self._ids))
+            self.events.append((name, sid, args, out, tuple(seq.block_table)))
+        return out
+
+    def can_allocate(self, seq, margin_tokens=0):
+        return self._call("can_allocate", seq, margin_tokens)
+
+    def allocate_prompt(self, seq, margin_tokens=0):
+        return self._call("allocate_prompt", seq, margin_tokens)
+
+    def ensure_capacity(self, seq, upto_tokens):
+        return self._call("ensure_capacity", seq, upto_tokens)
+
+    def deallocate(self, seq):
+        return self._call("deallocate", seq)
+
+    def capacity_tokens(self, seq):
+        return self._call("capacity_tokens", seq, record=False)
+
+
+def engine_block_managers(counter, launches_out):
+    """The Python and the native (C++) block manager in turns (P N N P) on
+    the same requests: the demo checkpoint in f32 on the default engine, the
+    64 held-out prompts in one `generate` (greedy Jacobi, N 32).  Every run's
+    tokens and every allocate / grow / free call's page table must equal the
+    first run's; iterations/s, wall ms per engine step and the manager's own
+    host ms per step are printed for each."""
+    from jacobiforcing_tpu_torch.engine.block_manager import BlockManager
+    from jacobiforcing_tpu_torch.engine.native_block_manager import NativeBlockManager
+
+    with open(os.path.join(DEMO, "tpf_demo.json")) as f:
+        meta = json.load(f)
+    prompts = demo_prompts()
+    sp = demo_sps(meta, ("jacobi",))["jacobi"]
+    runs, faults = [], []
+    for kind in ("python", "native", "native", "python"):
+        os.environ["JF_NATIVE_BM"] = "1" if kind == "native" else "0"
+        try:
+            llm = demo_llm(meta)
+        finally:
+            os.environ.pop("JF_NATIVE_BM")
+        eng = llm.engine
+        want = NativeBlockManager if kind == "native" else BlockManager
+        if type(eng.block_manager) is not want:
+            faults.append(f"{kind}: the engine took {type(eng.block_manager).__name__}")
+        rec = RecordingBlockManager(eng.block_manager)
+        eng.block_manager = eng.scheduler.block_manager = rec
+        steps = [0]
+        step = eng.step
+
+        def counted_step():
+            steps[0] += 1
+            return step()
+
+        eng.step = counted_step
+        fw0 = eng.stats["chunk_forwards"]
+        zero_counts(counter)
+        _sync()
+        t0 = time.perf_counter()
+        outs = llm.generate(prompts, sp)
+        _sync()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        fwds = eng.stats["chunk_forwards"] - fw0
+        streams = [o["token_ids"] for o in outs]
+        runs.append((kind, streams, rec.events))
+        log(f"[engine-bm] {kind} block manager: {sum(len(t) for t in streams)} tokens, "
+            f"{fwds} batched forwards in {wall:.3f}s = {fwds / wall:.2f} iterations/s; "
+            f"{steps[0]} engine steps, {wall / steps[0] * 1e3:.3f} ms wall per step, "
+            f"{rec.seconds / steps[0] * 1e3:.4f} ms per step inside the block manager "
+            f"({len(rec.events)} allocate / grow / free calls); kernel launches "
+            f"{launches['paged_attention']} paged; plain attention calls on CUDA: {counter.n}")
+        if launches["paged_attention"] <= 0 or counter.n:
+            faults.append(f"{kind} did not go through the kernels alone")
+        llm.exit()
+    first = runs[0]
+    for i, (kind, streams, events) in enumerate(runs[1:], 1):
+        same_tokens = streams == first[1]
+        same_tables = events == first[2]
+        log(f"[engine-bm] run {i} ({kind}) against run 0 (python): tokens equal {same_tokens}, "
+            f"page tables equal over {len(events)} calls {same_tables}")
+        if not (same_tokens and same_tables):
+            faults.append(f"run {i} ({kind}): tokens equal {same_tokens}, tables equal "
+                          f"{same_tables}")
+    if faults:
+        raise AssertionError("block managers: " + "; ".join(faults))
+
+
 def phase_engine(counter, launches_out, params=None):
     from jacobiforcing_tpu_torch.models.qwen import ModelConfig, init_params
 
     engine_demo(counter, launches_out)
+    engine_block_managers(counter, launches_out)
     cfg = ModelConfig()
     if params is None:
         params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
     engine_full_width(counter, launches_out, cfg, params)
     engine_bench(cfg, params)
     return params
+
+
+# ---------------------------------------------------------------------------
+# Phase `apps`: the chat apps, the grid sweep, the TPF demo trainer, legacy CLLM
+# ---------------------------------------------------------------------------
+
+
+class ByteTokenizer:
+    """Byte-level tokenizer of the demo's 256-token vocabulary: a string's
+    latin-1 bytes are its ids, and ids decode back to the same string (the
+    held-out prompts, decoded, encode to themselves)."""
+
+    eos_token_id = 2
+
+    def encode(self, text):
+        return list(text.encode("latin-1"))
+
+    def decode(self, ids):
+        return bytes(ids).decode("latin-1")
+
+
+def post_generate(port, prompt, max_tokens):
+    """The ndjson events of one POST /generate to the chat server."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate",
+        data=json.dumps({"prompt": prompt, "max_tokens": max_tokens}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        return [json.loads(line) for line in resp if line.strip()]
+
+
+def apps_chat(counter, launches_out, meta):
+    """`chat_web.serve` on the demo checkpoint with `ByteTokenizer`: the page,
+    then 4 held-out prompts POSTed to /generate over HTTP, whose streamed
+    text must equal blocking generation on the same engine; then
+    `jacobi_stream_chat`, streamed == blocking on 4 more prompts."""
+    import threading
+    import urllib.request
+
+    from jacobiforcing_tpu_torch.apps import chat_web
+    from jacobiforcing_tpu_torch.apps.chat_stream import jacobi_stream_chat
+    from jacobiforcing_tpu_torch.config import SamplingParams
+
+    tok = ByteTokenizer()
+    n, block = int(meta["max_tokens"]), int(meta["block_len"])
+    prompts = demo_prompts()
+    llm = demo_llm(meta, jacobi_chunk_tokens=block)  # a chunk per iteration: several per answer
+    sp = SamplingParams(temperature=0.0, max_tokens=n, decode_strategy="jacobi",
+                        jacobi_block_len=block, jacobi_max_blocks=1, jacobi_max_iterations=4096)
+    server = chat_web.serve(llm.engine, tok, port=0, default_params={
+        "jacobi_block_len": block, "jacobi_max_blocks": 1, "max_tokens": n})
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    faults = []
+    try:
+        page = urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=60).read().decode()
+        zero_counts(counter)
+        t0 = time.perf_counter()
+        answers = [post_generate(port, tok.decode(p), n) for p in prompts[:4]]
+        dt = time.perf_counter() - t0
+        launches = launches_out["apps_chat_web"] = read_counts()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    for p, events in zip(prompts[:4], answers):
+        text = "".join(e.get("text", "") for e in events if e["pane"] == "jacobi")
+        want = llm.engine.generate([p], sp)[0]["token_ids"]
+        if tok.encode(text) != want or not any("stats" in e for e in events):
+            faults.append(f"chat_web prompt {p[:4]}...: streamed {tok.encode(text)[:8]}... "
+                          f"against blocking {want[:8]}...")
+    log(f"[apps] chat_web: page {len(page)} B; 4 POST /generate over HTTP in {dt:.2f}s, "
+        f"{sum(len(e) for e in answers)} ndjson events, streamed tokens == blocking: "
+        f"{not faults}; kernel launches {launches}; plain attention calls on CUDA: {counter.n}")
+    if launches["paged_attention"] <= 0 or counter.n or "JacobiForcing-TPU chat" not in page:
+        faults.append("chat_web did not serve its page or go through the kernels alone")
+    for p in prompts[4:8]:
+        chunks = []
+        out = jacobi_stream_chat(llm.engine, None, [{"role": "user", "content": p}],
+                                 max_new_tokens=n, n_token_seq_len=block,
+                                 on_chunk=lambda _t, toks: chunks.append(list(toks)))
+        want = llm.engine.generate([p], sp)[0]["token_ids"]
+        ok = out["token_ids"] == want and sum(chunks, []) == want
+        log(f"[apps] jacobi_stream_chat: {len(want)} tokens in {len(chunks)} chunks at "
+            f"{out['tokens_per_s']:.1f} tok/s, streamed == blocking: {ok}")
+        if not ok:
+            faults.append(f"jacobi_stream_chat prompt {p[:4]}...: streamed != blocking")
+    llm.exit()
+    if faults:
+        raise AssertionError("chat apps: " + "; ".join(faults))
+
+
+def apps_grid(counter, launches_out, meta, workdir):
+    """`grid_search.run_grid` on the demo checkpoint over n {16, 32} x K {1, 2}
+    x r {0.8} x pool {1, 4} (8 held-out prompts, 96 new tokens; the MR points
+    run the MR program, auto-policy off), then `analyze_grid.analyze` on its
+    CSV.  Every point must succeed; the MR points launch kernel 2."""
+    from jacobiforcing_tpu_torch.apps import analyze_grid, grid_search
+
+    args = grid_search.make_parser().parse_args([])
+    args.output_dir = os.path.join(workdir, "grid")
+    args.block_sizes, args.Ks, args.rs, args.pools = [16, 32], [1, 2], [0.8], [1, 4]
+    args.max_new_tokens = int(meta["max_tokens"])
+    args.limit = 8
+    args.dataset = os.path.join(DEMO, "heldout_prompts.jsonl")
+    zero_counts(counter)
+    t0 = time.perf_counter()
+    rows = grid_search.run_grid(args, lambda: (demo_llm(meta, jacobi_mr_auto_policy=False).engine,
+                                               None))
+    dt = time.perf_counter() - t0
+    launches = launches_out["apps_grid"] = read_counts()
+    for r in rows:
+        log(f"[apps] grid point n={r['n']} K={r['K']} r={r['r']} pool={r['pool']}: "
+            f"{'error ' + r['error'] if 'error' in r else ''}"
+            f"tokens per forward {r.get('tokens_per_forward')}, tok/s {r.get('tokens_per_s')}")
+    result = analyze_grid.analyze(os.path.join(args.output_dir, "grid_results.csv"),
+                                  args.output_dir)
+    log(f"[apps] grid: {len(rows)} points in {dt:.1f}s; kernel launches {launches}; plain "
+        f"attention calls on CUDA: {counter.n}; analyze_grid: {json.dumps(result)}")
+    bad = [r for r in rows if "error" in r]
+    if (bad or len(rows) != 8 or launches["paged_attention"] <= 0
+            or launches["spec_attention"] <= 0 or counter.n or "best_measured" not in result):
+        raise AssertionError(f"grid sweep: {len(bad)} failed points, launches {launches}, "
+                             f"{counter.n} plain attention calls on CUDA, analysis {result}")
+
+
+def apps_tpf_demo(counter, launches_out, workdir):
+    """`train_tpf_demo` at its default geometry (hidden 256, 8 layers, N 32),
+    cut to 2000 SFT steps (of 6000: the whole script's time limit) and one
+    consistency round of two epochs, into a temporary directory: it must
+    reach its target, a measured TPF >= 2 on its held-out prompts
+    (aggregate, the throughput multiplier)."""
+    from jacobiforcing_tpu_torch.apps import train_tpf_demo
+
+    args = train_tpf_demo.make_parser().parse_args(
+        ["--out", os.path.join(workdir, "tpf_demo"), "--rounds", "1", "--epochs", "2",
+         "--sft-steps", "2000"])
+    zero_counts(counter)
+    t0 = time.perf_counter()
+    result = train_tpf_demo.run(args)
+    dt = time.perf_counter() - t0
+    launches = launches_out["apps_tpf_demo"] = read_counts()
+    stages = [(h["round"], h["tpf"], h["tpf_aggregate"]) for h in result["tpf_history"]]
+    log(f"[apps] train_tpf_demo hidden {args.hidden}, {args.layers} layers, N {args.block_len}, "
+        f"--rounds 1 --epochs 2 --sft-steps 2000: {dt:.1f}s; SFT {result['sft_steps']} steps in "
+        f"{result['sft_seconds']:.1f}s = {result['sft_steps'] / result['sft_seconds']:.2f} "
+        f"steps/s; TPF (round, mean, aggregate) per stage {stages}; second held-out set "
+        f"{result['tpf_set2']} (aggregate {result['tpf_set2_aggregate']}, "
+        f"{result['set2_n_eos_terminated']}/{result['n_heldout']} EOS); kernel 1 launches "
+        f"{launches['paged_attention']}; plain attention calls on CUDA: {counter.n}")
+    if (result["tpf_final_aggregate"] < 2.0 or launches["paged_attention"] <= 0 or counter.n):
+        raise AssertionError(f"train_tpf_demo: aggregate TPF {result['tpf_final_aggregate']} "
+                             f"(target >= 2), launches {launches}, {counter.n} plain calls")
+
+
+def legacy_row(rng, vocab, prompt_len, answer_len, n_blk, states):
+    """A stage-1 trajectory row of random tokens: the teacher output is the
+    prompt and its answer; the trajectory walks a block of `n_blk` tokens
+    from noise to the answer's first block."""
+    prompt = rng.randint(3, vocab, prompt_len).tolist()
+    answer = rng.randint(3, vocab, answer_len).tolist()
+    fixed = answer[:n_blk]
+    traj = []
+    for i in range(states - 1):
+        keep = rng.rand(n_blk) < i / states
+        traj.append([f if k else int(rng.randint(3, vocab)) for f, k in zip(fixed, keep)])
+    return {"prompt_ids": prompt, "answer_trajectory_ids": traj + [fixed],
+            "teacher_output_ids": prompt + answer}
+
+
+def legacy_run(cfg, params, sample, device, steps):
+    """`steps` legacy CLLM updates (AdamW 1e-4, optax's defaults) on one
+    prepared sample; returns the losses.  The RoPE table is computed on the
+    host and moved: the card's float32 cos / sin differ from the host's in
+    the last bit, which step 1 would carry into every later one."""
+    from jacobiforcing_tpu_torch.models.qwen import rope_table
+    from jacobiforcing_tpu_torch.train.legacy_cllm import make_legacy_train_step
+    from jacobiforcing_tpu_torch.train.optim import AdamW
+
+    opt = AdamW(1e-4)
+    step = make_legacy_train_step(cfg, opt)
+    state = opt.init(params)
+    rope = tuple(t.to(device) for t in rope_table(cfg, "cpu"))
+    losses = []
+    for _ in range(steps):
+        params, state, m = step(params, state, rope, sample)
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def apps_legacy(counter, big_cfg=None):
+    """The legacy CLLM step: 3 steps from the demo checkpoint's weights on the
+    card against the same 3 steps on the host CPU, in float32 (losses within
+    1e-5 relative and decreasing; beside them the host's own spread between
+    thread counts, which reorders f32 sums as the card does) and in float64
+    (within 1e-9: the same arithmetic); then one step at Qwen2.5-7B widths in bf16 with the depth cut to 4 layers
+    (28 layers' AdamW state does not fit beside the phase's other models),
+    its time and peak memory.  `big_cfg` replaces that configuration (a
+    rehearsal on the CPU)."""
+    from jacobiforcing_tpu_torch.models.qwen import ModelConfig, init_params
+    from jacobiforcing_tpu_torch.train.legacy_cllm import prepare_legacy_sample
+    from jacobiforcing_tpu_torch.utils.loader import load_checkpoint
+
+    row = legacy_row(np.random.RandomState(0), 256, 12, 80, 32, 4)
+    sample = prepare_legacy_sample(row, np.random.RandomState(0), seq_bucket=128)
+    losses = {}
+    threads = torch.get_num_threads()
+    runs = [("cpu", torch.float64, threads), (DEV, torch.float64, threads),
+            ("cpu", torch.float32, threads), (DEV, torch.float32, 0), ("cpu", torch.float32, 1)]
+    for device, dtype, nt in runs:
+        if nt:
+            torch.set_num_threads(nt)
+        cfg, params = load_checkpoint(DEMO, dtype=dtype, device=device)
+        zero_counts(counter)
+        t0 = time.perf_counter()
+        losses[device, dtype, nt] = legacy_run(cfg, params, sample, device, 3)
+        dt = time.perf_counter() - t0
+        log(f"[apps] legacy CLLM demo widths {str(dtype)[6:]} on {device}"
+            f"{f' ({nt} threads)' if device == 'cpu' else ''}: losses "
+            f"{[f'{x:.9g}' for x in losses[device, dtype, nt]]} in {dt:.2f}s")
+    torch.set_num_threads(threads)
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(losses[a], losses[b]))
+
+    host64, card64 = ("cpu", torch.float64, threads), (DEV, torch.float64, threads)
+    host32, card32 = ("cpu", torch.float32, threads), (DEV, torch.float32, 0)
+    r64, r32 = rel(card64, host64), rel(card32, host32)
+    spread = rel(("cpu", torch.float32, 1), host32)
+    l32 = losses[card32]
+    ok = r64 <= 1e-9 and r32 <= 1e-5 and l32[0] > l32[1] > l32[2]
+    log(f"[apps] legacy CLLM, card against host, worst relative loss difference over 3 steps: "
+        f"float32 {r32:.2e} (<= 1e-5; the host's own, {threads} threads against 1: "
+        f"{spread:.2e}), float64 {r64:.2e} (<= 1e-9); float32 losses decreasing "
+        f"{l32[0] > l32[1] > l32[2]} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"legacy CLLM: {losses}")
+    cfg = big_cfg or dataclasses.replace(ModelConfig(), num_layers=4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    row = legacy_row(np.random.RandomState(1), cfg.vocab_size, 64, 192, 32, 4)
+    sample = prepare_legacy_sample(row, np.random.RandomState(0), seq_bucket=256)
+    _sync()
+    t0 = time.perf_counter()
+    loss = legacy_run(cfg, params, sample, DEV, 1)
+    _sync()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[apps] legacy CLLM Qwen2.5-7B widths, 4 layers, bf16, one step on rows of 256 "
+        f"tokens: loss {loss[0]:.4f} in {dt:.2f}s (the first step, allocation included); peak "
+        f"torch.cuda.max_memory_allocated {peak:.2f} GiB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not math.isfinite(loss[0]):
+        raise AssertionError(f"legacy CLLM at 7B widths: loss {loss[0]}")
+
+
+def phase_apps(counter, launches_out):
+    with open(os.path.join(DEMO, "tpf_demo.json")) as f:
+        meta = json.load(f)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_apps_", dir=os.path.join(REPO, "build"))
+    try:
+        apps_chat(counter, launches_out, meta)
+        apps_grid(counter, launches_out, meta, workdir)
+        apps_tpf_demo(counter, launches_out, workdir)
+        apps_legacy(counter)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2499,8 +2980,8 @@ def packed_row(vocab, P, T, N, seed):
 
 def step_profile(prof, wall_ms):
     """Device time by group inside the `profiled_step` range of a trace;
-    returns the number of delta-kernel launches in the step (bf16 folds
-    delta into the dQ kernel)."""
+    returns the number of delta-kernel launches in the step (there should be
+    none: both dQ kernels take delta themselves)."""
     from torch.autograd import DeviceType
 
     events = prof.events()
@@ -2629,8 +3110,8 @@ def phase_train_full(counter, launches_out, params=None, cfg=None, row_shape=(51
               device=DEV, log_fn=on_log_profiled)
     if cuda:
         n_delta = step_profile(prof, (stamps[-1] - stamps[-2]) * 1e3)
-        if cfg.dtype == torch.bfloat16 and n_delta:
-            raise AssertionError("the bf16 step launched the delta kernel: dQ folds it in")
+        if n_delta:
+            raise AssertionError("the step launched a delta kernel: dQ takes delta itself")
 
 
 def phase_train(counter, launches_out, params=None):
@@ -3391,6 +3872,7 @@ def report_exactness(counter, workdir, one, exact, smi):
         qwen.train_attention = kernel
     start = checkpoint_leaves(DEMO)
     first = checkpoint_leaves(os.path.join(workdir, "tp2-f64", "checkpoint-1"))
+    seen = {}
     for name, run in (("one", one["tp2"]), ("plain", plain)):
         r = mesh_demo_readings(workdir, "tp2", name, "f64", start, [run["history"]],
                                exact["tp2"]["history"])
@@ -3407,6 +3889,18 @@ def report_exactness(counter, workdir, one, exact, smi):
             f"{[(k, f'{v:.2e}') for k, v in flips.items()]}, kernel 3 launches "
             f"{ {k: run['launches'][k] for k in TRAIN_KERNEL_NAMES} }, plain attention calls "
             f"on CUDA {run['plain']}; {smi}")
+        seen[name] = (r["step_err"][2], flips)
+    # the aim of the f32 dQ's sum P dP delta: step 3's loss error within 10x
+    # the plain attention's, each leaf's sign-flip share within 2x (a share of
+    # 0 in the plain run counts as 1e-3, the resolution of the smallest leaf)
+    (k3, kf), (p3, pf) = seen["one"], seen["plain"]
+    loss_ratio = k3 / max(p3, 1e-12)
+    flip_ratio = {leaf: kf[leaf] / max(pf[leaf], 1e-3) for leaf in kf}
+    met = loss_ratio <= 10 and all(x <= 2 for x in flip_ratio.values())
+    log(f"[train-exact] kernel 3 against the plain attention: step-3 loss error "
+        f"{k3:.2e} / {p3:.2e} = {loss_ratio:.1f}x (aim <= 10x), sign-flip share ratio "
+        f"{[(k, round(v, 2)) for k, v in flip_ratio.items()]} (aim <= 2x): aim "
+        f"{'met' if met else 'NOT met'}; {smi}")
 
 
 def phase_train_mesh(counter, timing, launches_out):
@@ -3487,6 +3981,8 @@ COMPARE_PATTERNS = {
     # [int4-kernel-time] gateup M=4 ... bf16: kernel X ms, ... weight bytes) Y ms, bound Z ms
     "int4": r"\[int4-kernel-time\] (\w+) M=(\d+) K=\d+ N=\d+ bf16: kernel ([\d.]+) ms, plain "
             r"[\d.]+ ms, x @ W_bf16 [^)]+\) ([\d.]+) ms, bound ([\d.]+) ms",
+    # [train-kernel-time f32] train_attention_dq L=4096: X ms, bound Y ms
+    "f32": r"\[train-kernel-time f32\] (train_attention_\w+) L=(\d+): ([\d.]+) ms",
 }
 
 
@@ -3546,6 +4042,8 @@ def compare(parent: str, phases: str = "train_kernel,train", order: str = "PCCP"
                 table.setdefault(f"{kname} L={L} ms", {}).setdefault(tag, []).append(ms)
         for sps, _ in got["steps"]:
             table.setdefault("full-width training steps/s", {}).setdefault(tag, []).append(sps)
+        for kname, L, ms in got["f32"]:
+            table.setdefault(f"{kname} f32 L={L} ms", {}).setdefault(tag, []).append(ms)
         for sname, M, ms, gemm, _ in got["int4"]:
             table.setdefault(f"int4 {sname} M={M} ms", {}).setdefault(tag, []).append(ms)
             table.setdefault(f"int4 {sname} M={M} bf16 GEMM ms", {}).setdefault(tag, []).append(gemm)
@@ -3577,8 +4075,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phases = (sys.argv[1].split(",") if len(sys.argv) > 1
-              else ["kernel", "train_kernel", "demo", "sampling", "full", "engine", "full_quant",
-                    "tp", "train", "train_mesh"])
+              else ["kernel", "train_kernel", "demo", "sampling", "apps", "full", "engine",
+                    "full_quant", "tp", "train", "train_mesh"])
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
@@ -3612,6 +4110,8 @@ def main() -> int:
         phase_int8_gemm()
     if "train_kernel" in phases:
         run("train_kernel", phase_train_kernel, timing)
+    if "train_f32_time" in phases:
+        train_kernel_f32_times(timing)
     counter = PlainOnCudaCounter()
     params = None
     if "demo" in phases:
@@ -3619,12 +4119,14 @@ def main() -> int:
         run("demo (quantized engines)", phase_demo_quant, counter, launches)
     if "sampling" in phases:
         run("sampling", phase_sampling, counter, launches)
+    if "apps" in phases:
+        run("apps", phase_apps, counter, launches)
     if "full" in phases:
         params = run("full", phase_full_width, counter, launches)
     if "engine" in phases:
         params = run("engine", phase_engine, counter, launches, params)
     if "full_quant" in phases:
-        run("full_quant", phase_full_quant, counter, launches)
+        run("full_quant", phase_full_quant, counter, launches, params)
     if "tp" in phases:
         run("tp", phase_tp, counter, launches, params)
     if "train" in phases:
@@ -3639,8 +4141,9 @@ def main() -> int:
     if all(p in phases for p in ("kernel", "train_kernel", "full", "full_quant", "train")):
         # each kernel at its main-path shape (Jacobi decode B=4, L=64; the MR
         # run's most frequent tier, B=4; the same two on the fp8 cache of the
-        # W8A8 run; one decoder layer's gate/up product at M=256; the trainer's
-        # row of 4096 tokens), with the launches of that path's run
+        # W8A8 run and on the e5m2 cache of the bf16 run; one decoder layer's
+        # gate/up product at M=256; the trainer's row of 4096 tokens), with
+        # the launches of that path's run
         rows = [("paged_attention", timing["decode"], launches["jacobi"]["paged_attention"]),
                 ("spec_attention", timing[launches["mr_main_shape"]],
                  launches["mr"]["spec_attention"]),
@@ -3648,6 +4151,10 @@ def main() -> int:
                  launches["w8a8_fp8_jacobi"]["paged_attention"]),
                 ("spec_attention_fp8", timing[launches["w8a8_fp8_mr_main_shape"] + "_fp8"],
                  launches["w8a8_fp8_mr"]["spec_attention"]),
+                ("paged_attention_e5m2", timing["decode_e5m2"],
+                 launches["bf16_e5m2_jacobi"]["paged_attention"]),
+                ("spec_attention_e5m2", timing[launches["bf16_e5m2_mr_main_shape"] + "_e5m2"],
+                 launches["bf16_e5m2_mr"]["spec_attention"]),
                 ("int4_matmul", timing["int4_gateup_M256"], launches["int4_path"]["int4_matmul"])]
         rows += [(n, timing[f"{n}_L4096"], launches["train"][n]) for n in TRAIN_KERNEL_NAMES]
         if "train_mesh" in phases:

@@ -26,8 +26,8 @@
 // state exactly unchanged (alpha = exp(0) = 1, p = 0).
 //
 // Narrow K/V storage: the cache's element type S is a template parameter of
-// its own (float, bfloat16, fp8 e4m3, int8), apart from the query type T.  An
-// fp8 or int8 cache comes with one float32 dequant scale per stored row, at
+// its own (float, bfloat16, fp8 e4m3 or e5m2, int8), apart from the query
+// type T.  An fp8 or int8 cache comes with one float32 dequant scale per stored row, at
 // scale[h * num_slots + slot]; a row is dequantized while it is staged, in
 // the query type: round_T(float(stored) * round_T(scale)).  That is bit for
 // bit what ops/kv_cache.dequantize_rows computes, so a committed row read
@@ -95,6 +95,17 @@ struct Vec<__nv_fp8_e4m3> {
   __device__ __forceinline__ static void load(const __nv_fp8_e4m3* p, float* o) {
     const uint4 x = *reinterpret_cast<const uint4*>(p);
     const __nv_fp8_e4m3* e = reinterpret_cast<const __nv_fp8_e4m3*>(&x);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) o[i] = static_cast<float>(e[i]);
+  }
+};
+
+template <>
+struct Vec<__nv_fp8_e5m2> {
+  static constexpr int N = 16;
+  __device__ __forceinline__ static void load(const __nv_fp8_e5m2* p, float* o) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    const __nv_fp8_e5m2* e = reinterpret_cast<const __nv_fp8_e5m2*>(&x);
 #pragma unroll
     for (int i = 0; i < 16; ++i) o[i] = static_cast<float>(e[i]);
   }
@@ -327,9 +338,9 @@ __device__ __forceinline__ void fill_paged_key(long long* off_s, float* ks_s, fl
 }
 
 // The storage codes of the C interfaces: 0 float32, 1 bfloat16 (no scales),
-// 2 fp8 e4m3, 3 int8 (with scales).  Served pairs (query, cache): the cache in
-// the query's type, a bfloat16 cache under float32 queries, and fp8 / int8
-// under either.
+// 2 fp8 e4m3, 3 int8, 4 fp8 e5m2 (with scales).  Served pairs (query, cache):
+// the cache in the query's type, a bfloat16 cache under float32 queries, and
+// fp8 (either format) / int8 under either.
 #define JF_DISPATCH_TYPES(QD, CD, HD, CALL)                                          \
   do {                                                                               \
     if ((QD) == 0 && (CD) == 0 && (HD) == 64) return CALL(float, float, 64);         \
@@ -340,12 +351,16 @@ __device__ __forceinline__ void fill_paged_key(long long* off_s, float* ks_s, fl
     if ((QD) == 0 && (CD) == 2 && (HD) == 128) return CALL(float, __nv_fp8_e4m3, 128); \
     if ((QD) == 0 && (CD) == 3 && (HD) == 64) return CALL(float, int8_t, 64);        \
     if ((QD) == 0 && (CD) == 3 && (HD) == 128) return CALL(float, int8_t, 128);      \
+    if ((QD) == 0 && (CD) == 4 && (HD) == 64) return CALL(float, __nv_fp8_e5m2, 64); \
+    if ((QD) == 0 && (CD) == 4 && (HD) == 128) return CALL(float, __nv_fp8_e5m2, 128); \
     if ((QD) == 1 && (CD) == 1 && (HD) == 64) return CALL(__nv_bfloat16, __nv_bfloat16, 64); \
     if ((QD) == 1 && (CD) == 1 && (HD) == 128) return CALL(__nv_bfloat16, __nv_bfloat16, 128); \
     if ((QD) == 1 && (CD) == 2 && (HD) == 64) return CALL(__nv_bfloat16, __nv_fp8_e4m3, 64); \
     if ((QD) == 1 && (CD) == 2 && (HD) == 128) return CALL(__nv_bfloat16, __nv_fp8_e4m3, 128); \
     if ((QD) == 1 && (CD) == 3 && (HD) == 64) return CALL(__nv_bfloat16, int8_t, 64); \
     if ((QD) == 1 && (CD) == 3 && (HD) == 128) return CALL(__nv_bfloat16, int8_t, 128); \
+    if ((QD) == 1 && (CD) == 4 && (HD) == 64) return CALL(__nv_bfloat16, __nv_fp8_e5m2, 64); \
+    if ((QD) == 1 && (CD) == 4 && (HD) == 128) return CALL(__nv_bfloat16, __nv_fp8_e5m2, 128); \
   } while (0)
 
 // ===========================================================================
@@ -704,6 +719,10 @@ __device__ __forceinline__ float byte_to_f32(unsigned char x);
 template <>
 __device__ __forceinline__ float byte_to_f32<__nv_fp8_e4m3>(unsigned char x) {
   return static_cast<float>(*reinterpret_cast<const __nv_fp8_e4m3*>(&x));
+}
+template <>
+__device__ __forceinline__ float byte_to_f32<__nv_fp8_e5m2>(unsigned char x) {
+  return static_cast<float>(*reinterpret_cast<const __nv_fp8_e5m2*>(&x));
 }
 template <>
 __device__ __forceinline__ float byte_to_f32<int8_t>(unsigned char x) {

@@ -7,8 +7,8 @@
 // q[B, L, NH, D] at absolute positions[B, L] attend to one layer of the
 // head-major paged cache k/v[KH, num_slots, D] through block_tables[B, P];
 // key j counts iff j < cache_lens[b] and j <= position.  The cache may be
-// stored narrower than the queries (bfloat16 under float32; fp8 e4m3 or int8
-// with one float32 dequant scale per stored row, k_scale / v_scale
+// stored narrower than the queries (bfloat16 under float32; fp8 e4m3 / e5m2
+// or int8 with one float32 dequant scale per stored row, k_scale / v_scale
 // [KH, num_slots]): the TPU kernel folds the K scale into the scores and the
 // V scale into the probabilities; here a row is dequantized once while it is
 // staged (attention_tile.cuh), which is the same function.
@@ -271,8 +271,9 @@ int attrs(int* out) {
 }  // namespace
 
 // dtype (queries and output): 0 = float32, 1 = bfloat16.  cache_dtype: 0 =
-// float32, 1 = bfloat16, 2 = fp8 e4m3, 3 = int8; k_scale / v_scale are the
-// [KH, num_slots] float32 dequant scales for codes 2 and 3 and null otherwise.
+// float32, 1 = bfloat16, 2 = fp8 e4m3, 3 = int8, 4 = fp8 e5m2; k_scale /
+// v_scale are the [KH, num_slots] float32 dequant scales for codes 2-4 and
+// null otherwise.
 // Returns 0 on success, a cudaError_t code after a refused launch, or -1 for a
 // shape/dtype the kernel does not take (the Python wrapper checks those first).
 extern "C" int jf_paged_attention(const void* q, const void* k, const void* v,

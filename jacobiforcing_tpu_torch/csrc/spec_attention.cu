@@ -10,8 +10,9 @@
 // there is no causal term) AND to the in-flight block k_new/v_new[B, T, KH, D],
 // which is in no cache, under intra_mask[B, T, T] (one byte per entry, shared
 // by all heads), with ONE softmax over both.  It writes no K/V.  The cache may
-// be stored narrower than the queries (bfloat16 under float32; fp8 e4m3 or
-// int8 with per-row float32 dequant scales k_scale / v_scale [KH, num_slots]),
+// be stored narrower than the queries (bfloat16 under float32; fp8 e4m3 /
+// e5m2 or int8 with per-row float32 dequant scales k_scale / v_scale
+// [KH, num_slots]),
 // as in paged_attention.cu: committed rows are dequantized while staged, in
 // the query type.  The in-flight block always comes in the query type (for a
 // scaled cache the caller has fake-quantized it the same way).
@@ -302,11 +303,11 @@ int attrs(int* out) {
 }  // namespace
 
 // dtype (queries, in-flight block and output): 0 = float32, 1 = bfloat16.
-// cache_dtype: 0 = float32, 1 = bfloat16, 2 = fp8 e4m3, 3 = int8; k_scale /
-// v_scale are the [KH, num_slots] float32 dequant scales for codes 2 and 3 and
-// null otherwise.  Returns 0 on success, a cudaError_t code after a refused
-// launch, or -1 for a shape/dtype the kernel does not take (the Python wrapper
-// checks those first).
+// cache_dtype: 0 = float32, 1 = bfloat16, 2 = fp8 e4m3, 3 = int8, 4 = fp8
+// e5m2; k_scale / v_scale are the [KH, num_slots] float32 dequant scales for
+// codes 2-4 and null otherwise.  Returns 0 on success, a cudaError_t code
+// after a refused launch, or -1 for a shape/dtype the kernel does not take
+// (the Python wrapper checks those first).
 extern "C" int jf_spec_attention(const void* q, const void* k, const void* v,
                                  const void* k_scale, const void* v_scale, const void* bt,
                                  const void* cl, const void* k_new, const void* v_new,

@@ -39,10 +39,26 @@
 // tile of attention_tile.cuh), which carry the f32 training anchors.
 //   * forward: one CTA per (query tile, KV head), the online-softmax tile step
 //     shared with the serving kernels; writes O and the row log-sum-exp.
-//   * dQ: train_delta_kernel (delta = rowsum(dO * O)), then train_dq_kernel,
-//     one CTA per (query tile, KV head); dS goes from lane to lane by shuffle.
+//   * dQ: train_dq_kernel, one CTA per (query tile, KV head), in two sweeps
+//     over the row's visible key tiles.  The backward recomputes P_ij =
+//     exp(s_ij - lse_i), and lse's rounding (~1e-7 of |lse|) scales a whole
+//     row of P by one factor 1 + eps, so sigma_i = sum_j P_ij is not 1 to
+//     rounding; autograd's softmax keeps it so.  The first sweep therefore
+//     takes sigma_i and sum_j P_ij dP_ij from the same P and dP that form dS
+//     (keys in list order per lane, then a fixed shuffle tree across lanes),
+//     and the P of both backward kernels is P / sigma, with delta_i = sum_j
+//     (P_ij / sigma_i) dP_ij: sum_j dS_ij is then zero to rounding, as in
+//     autograd.  Delta and sigma go to dK/dV in one [2][L, NH] buffer.  The
+//     second sweep forms dS = (P / sigma) (dP - delta) and dQ += dS.K, dS
+//     going from lane to lane by shuffle.  With delta = rowsum(dO * O) and an
+//     unnormalised P, sum_j dS_ij kept a rounding residue, and where the
+//     exact gradient cancels (q and k projections and biases) it flipped
+//     the sign of ~1% of the gradient's entries.  The first sweep costs a
+//     second pass of scores: dQ takes about twice the time of one sweep, on
+//     the demo-width path only.
 //   * dK/dV: one CTA per (key tile, KV head) over the transposed list, in
-//     halves of 32 query rows; P and dS pass through shared memory.
+//     halves of 32 query rows, with dQ's delta and sigma; P / sigma and dS
+//     pass through shared memory.
 //
 // bfloat16 inputs: all three on Hopper's tensor cores (wgmma, the jf::tc
 // tools of attention_tile.cuh), 64-key tiles:
@@ -232,32 +248,22 @@ train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // backward
 // ---------------------------------------------------------------------------
 
-// delta[t, head] = sum_d dO * O, one warp per row, fixed order.
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-train_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
-                   float* __restrict__ delta, long long n_rows) {
-  constexpr int DPL = D / 32;
-  const long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (row >= n_rows) return;
-  const int lane = threadIdx.x & 31;
-  const T* o = out + row * D + lane * DPL;
-  const T* g = dout + row * D + lane * DPL;
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) s = fmaf(to_f32(g[i]), to_f32(o[i]), s);
-  s = warp_sum(s);
-  if (lane == 0) delta[row] = s;
+// 1 / sigma, the factor that normalises a row's recomputed P; 0 for a row
+// that sees no key (sigma 0), whose P is all masked to 0 anyway.
+__device__ __forceinline__ float inv_sigma(float sigma) {
+  return sigma > 0.f ? __frcp_rn(sigma) : 0.f;
 }
 
 // Rows of one (query tile or half tile, KV head): token, block, element offset
-// into q / dO, log-sum-exp and delta of each, for n rows from row0 on.
+// into q / dO and log-sum-exp of each, for n rows from row0 on; with `delta`
+// ([2][L * NH]: delta, then sigma, as the f32 dQ kernel writes them) also
+// each row's delta and 1 / sigma (0 and 1 where `delta` is null).
 __device__ __forceinline__ void load_row_tables(int row0, int n, int L, int NH, int h, int G,
                                                 int D, const Layout& lay,
                                                 const float* __restrict__ lse,
                                                 const float* __restrict__ delta, int* tok_s,
                                                 int* blk_s, long long* off_s, float* lse_s,
-                                                float* delta_s, int tid) {
+                                                float* delta_s, float* isig_s, int tid) {
   for (int i = tid; i < n; i += THREADS) {
     const int row = row0 + i;
     if (row < G * L) {
@@ -267,13 +273,15 @@ __device__ __forceinline__ void load_row_tables(int row0, int n, int L, int NH, 
       blk_s[i] = block_of(t, lay);
       off_s[i] = head_row * D;
       lse_s[i] = lse[head_row];
-      delta_s[i] = delta[head_row];
+      delta_s[i] = delta != nullptr ? delta[head_row] : 0.f;
+      isig_s[i] = delta != nullptr ? inv_sigma(delta[head_row + (long long)L * NH]) : 1.f;
     } else {
       tok_s[i] = -1;
       blk_s[i] = -2;
       off_s[i] = -1;
       lse_s[i] = 0.f;
       delta_s[i] = 0.f;
+      isig_s[i] = 0.f;
     }
   }
 }
@@ -306,14 +314,36 @@ __device__ __forceinline__ void score_rows(const float* q_w, const float* do_w,
   }
 }
 
+// Stage key tile `ent` of one (query tile, KV head) into k_s / v_s and return
+// this lane's visibility bits for the warp's RW rows (0xffff for a full tile).
+template <typename T, int D>
+__device__ __forceinline__ unsigned stage_key_tile(const T* __restrict__ k,
+                                                   const T* __restrict__ v, int ent, int L,
+                                                   int KH, int h, const Layout& lay,
+                                                   long long* koff_s, float* k_s, float* v_s,
+                                                   const int* tok_w, const int* blk_w, int tid) {
+  constexpr int KS = K_STRIDE<D>;
+  const int k0 = (ent >> 1) * KT;
+  __syncthreads();  // q_s / do_s are staged, the previous tile is consumed
+  if (tid < KT) koff_s[tid] = k0 + tid < L ? ((long long)(k0 + tid) * KH + h) * D : -1;
+  __syncthreads();
+  stage_rows<T, D, KS>(k, koff_s, k_s, KT, tid);
+  stage_rows<T, D, KS>(v, koff_s, v_s, KT, tid);
+  __syncthreads();
+  if (ent & 1) return 0xffffu;
+  return visible_bits(tok_w, blk_w, RW, k0 + (tid & 31), L, lay);
+}
+
 // dQ: one CTA per (query tile, KV head).  Lane j scores key j of the tile
-// against the warp's RW rows, dS goes from lane to lane by shuffle, and lane i
-// holds dims [i * D/32, (i + 1) * D/32) of each row's dQ.
+// against the warp's RW rows.  Sweep 1 takes delta = sum_j P dP per row from
+// the P and dP of sweep 2 and writes it; sweep 2 forms dS, which goes from
+// lane to lane by shuffle, and lane i holds dims [i * D/32, (i + 1) * D/32)
+// of each row's dQ.
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 train_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, const int* __restrict__ q_ptr,
+                float* __restrict__ delta, const int* __restrict__ q_ptr,
                 const int* __restrict__ q_ent, T* __restrict__ dq, int L, int NH, int KH,
                 Layout lay, float scale) {
   constexpr int DPL = D / 32;
@@ -326,7 +356,7 @@ train_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   __shared__ long long off_s[ROWS];
   __shared__ long long koff_s[KT];
   __shared__ int tok_s[ROWS], blk_s[ROWS];
-  __shared__ float lse_s[ROWS], delta_s[ROWS];
+  __shared__ float lse_s[ROWS], delta_s[ROWS], isig_s[ROWS];
 
   const int qt = blockIdx.x;
   const int h = blockIdx.y;
@@ -336,41 +366,76 @@ train_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
-  load_row_tables(row0, ROWS, L, NH, h, G, D, lay, lse, delta, tok_s, blk_s, off_s, lse_s,
-                  delta_s, tid);
+  load_row_tables(row0, ROWS, L, NH, h, G, D, lay, lse, nullptr, tok_s, blk_s, off_s, lse_s,
+                  delta_s, isig_s, tid);
   __syncthreads();
   stage_rows<T, D, D>(q, off_s, q_s, ROWS, tid);
   stage_rows<T, D, D>(dout, off_s, do_s, ROWS, tid);
 
+  const float* q_w = q_s + warp * RW * D;
+  const float* do_w = do_s + warp * RW * D;
+  const int* tok_w = tok_s + warp * RW;
+  const int* blk_w = blk_s + warp * RW;
+  const int e_begin = q_ptr[qt];
+  const int e_end = q_ptr[qt + 1];
+
+  // ---- sweep 1: sigma = sum_j P and sum_j P dP, the P of the dS line below ----
+  {
+    float ps[RW], pd[RW];
+#pragma unroll
+    for (int r = 0; r < RW; ++r) ps[r] = pd[r] = 0.f;
+    for (int e = e_begin; e < e_end; ++e) {
+      const unsigned visible = stage_key_tile<T, D>(k, v, q_ent[e], L, KH, h, lay, koff_s, k_s,
+                                                    v_s, tok_w, blk_w, tid);
+      if (!__any_sync(FULL, visible != 0)) continue;
+      float s[RW], dp[RW];
+      score_rows<D, RW>(q_w, do_w, k_s + lane * KS, v_s + lane * KS, s, dp);
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const bool ok = (visible >> r) & 1u;
+        const float p = ok ? expf(__fmul_rn(s[r], scale) - lse_s[warp * RW + r]) : 0.f;
+        ps[r] = __fadd_rn(ps[r], p);
+        pd[r] = fmaf(p, dp[r], pd[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      const float sigma = warp_sum(ps[r]);  // every lane holds the same sums
+      const float pdsum = warp_sum(pd[r]);
+      const int i = warp * RW + r;
+      if (lane == 0) {
+        // delta of the normalised P: sum_j (P / sigma) dP
+        const float d = sigma > 0.f ? __fdiv_rn(pdsum, sigma) : 0.f;
+        delta_s[i] = d;
+        isig_s[i] = inv_sigma(sigma);
+        if (off_s[i] >= 0) {
+          delta[off_s[i] / D] = d;
+          delta[off_s[i] / D + (long long)L * NH] = sigma;
+        }
+      }
+    }
+    __syncwarp();
+  }
+
+  // ---- sweep 2: dS = (P / sigma) (dP - delta), dQ += dS.K ----
   float acc[RW][DPL];
 #pragma unroll
   for (int r = 0; r < RW; ++r)
 #pragma unroll
     for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
 
-  const float* q_w = q_s + warp * RW * D;
-  const float* do_w = do_s + warp * RW * D;
-  const int e_end = q_ptr[qt + 1];
-  for (int e = q_ptr[qt]; e < e_end; ++e) {
-    const int ent = q_ent[e];
-    const int k0 = (ent >> 1) * KT;
-    __syncthreads();  // q_s / do_s are staged, the previous tile is consumed
-    if (tid < KT) koff_s[tid] = k0 + tid < L ? ((long long)(k0 + tid) * KH + h) * D : -1;
-    __syncthreads();
-    stage_rows<T, D, KS>(k, koff_s, k_s, KT, tid);
-    stage_rows<T, D, KS>(v, koff_s, v_s, KT, tid);
-    __syncthreads();
-    unsigned visible = 0xffffu;
-    if (!(ent & 1)) {
-      visible = visible_bits(tok_s + warp * RW, blk_s + warp * RW, RW, k0 + lane, L, lay);
-      if (!__any_sync(FULL, visible != 0)) continue;
-    }
+  for (int e = e_begin; e < e_end; ++e) {
+    const unsigned visible = stage_key_tile<T, D>(k, v, q_ent[e], L, KH, h, lay, koff_s, k_s,
+                                                  v_s, tok_w, blk_w, tid);
+    if (!__any_sync(FULL, visible != 0)) continue;
     float s[RW], dp[RW];
     score_rows<D, RW>(q_w, do_w, k_s + lane * KS, v_s + lane * KS, s, dp);
 #pragma unroll
     for (int r = 0; r < RW; ++r) {
       const bool ok = (visible >> r) & 1u;
-      const float p = ok ? expf(__fmul_rn(s[r], scale) - lse_s[warp * RW + r]) : 0.f;
+      const float p = ok ? __fmul_rn(expf(__fmul_rn(s[r], scale) - lse_s[warp * RW + r]),
+                                     isig_s[warp * RW + r])
+                         : 0.f;
       s[r] = __fmul_rn(p, dp[r] - delta_s[warp * RW + r]);  // dS
     }
     // dQ += dS @ K over the tile, keys in order
@@ -428,7 +493,7 @@ train_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   __shared__ long long off_s[RQ];
   __shared__ long long koff_s[KT];
   __shared__ int tok_s[RQ], blk_s[RQ];
-  __shared__ float lse_s[RQ], delta_s[RQ];
+  __shared__ float lse_s[RQ], delta_s[RQ], isig_s[RQ];
 
   const int kt = blockIdx.x;
   const int h = blockIdx.y;
@@ -454,7 +519,7 @@ train_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
       const int row0 = (ent >> 1) * ROWS + half * RQ;
       __syncthreads();  // K / V are staged, the previous rows are consumed
       load_row_tables(row0, RQ, L, NH, h, G, D, lay, lse, delta, tok_s, blk_s, off_s, lse_s,
-                      delta_s, tid);
+                      delta_s, isig_s, tid);
       __syncthreads();
       stage_rows<T, D, D>(q, off_s, q_s, RQ, tid);
       stage_rows<T, D, D>(dout, off_s, do_s, RQ, tid);
@@ -478,7 +543,7 @@ train_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
       for (int r = 0; r < RWB; ++r) {
         const int i = warp * RWB + r;
         const bool ok = (visible >> r) & 1u;
-        const float p = ok ? expf(__fmul_rn(s[r], scale) - lse_s[i]) : 0.f;
+        const float p = ok ? __fmul_rn(expf(__fmul_rn(s[r], scale) - lse_s[i]), isig_s[i]) : 0.f;
         p_s[i * PS + lane] = p;
         ds_s[i * PS + lane] = __fmul_rn(p, dp[r] - delta_s[i]);
       }
@@ -1164,21 +1229,15 @@ int launch_fwd(const Args& a) {
 
 template <typename T, int D>
 int launch_dq(const Args& a) {
-  const long long n_rows = (long long)a.L * a.NH;
-  train_delta_kernel<T, D><<<(unsigned)((n_rows + WARPS - 1) / WARPS), THREADS, 0, a.stream>>>(
-      static_cast<const T*>(a.out), static_cast<const T*>(a.dout), static_cast<float*>(a.o1),
-      n_rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
   constexpr size_t smem = dq_smem_bytes<D>();
-  err = allow_smem(train_dq_kernel<T, D>, smem);
+  cudaError_t err = allow_smem(train_dq_kernel<T, D>, smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = (a.NH / a.KH) * a.L;
   const dim3 grid((rows + ROWS - 1) / ROWS, a.KH);
   train_dq_kernel<T, D><<<grid, THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.o1), static_cast<const int*>(a.ptr),
+      static_cast<float*>(a.o1), static_cast<const int*>(a.ptr),
       static_cast<const int*>(a.ent), static_cast<T*>(a.o0), a.L, a.NH, a.KH, a.lay, a.scale);
   return (int)cudaGetLastError();
 }
@@ -1287,8 +1346,8 @@ int dispatch(int which, int dtype, int D, const Args& a) {
   return -1;
 }
 
-// kernel_attrs of one variant; which 3 is the bf16 dK/dV's reduce kernel, 4
-// the f32 delta kernel (bf16 folds delta into dQ)
+// kernel_attrs of one variant; which 3 is the bf16 dK/dV's reduce kernel
+// (both dQ kernels take delta themselves)
 template <int D>
 int attrs(int which, int dtype, int* out) {
   int rc = -1;
@@ -1297,7 +1356,6 @@ int attrs(int which, int dtype, int* out) {
     if (which == 1) rc = kernel_attrs(train_dq_kernel<float, D>, false, dq_smem_bytes<D>(), THREADS, out);
     if (which == 2)
       rc = kernel_attrs(train_dkdv_kernel<float, D>, false, dkdv_smem_bytes<D>(), THREADS, out);
-    if (which == 4) rc = kernel_attrs(train_delta_kernel<float, D>, false, 0, THREADS, out);
     return rc;
   }
   if (dtype != 1) return -1;
@@ -1340,8 +1398,9 @@ extern "C" int jf_train_attention_fwd(const void* q, const void* k, const void* 
   return dispatch(0, dtype, D, a);
 }
 
-// Also writes delta[L, NH] = rowsum(dout * out) (bf16: dout * (out + out_lo)),
-// which the dK/dV call reads.
+// Also writes delta, which the dK/dV call reads: bf16 [L, NH] rowsum(dout *
+// (out + out_lo)); f32 [2][L, NH], sum_j (P / sigma) dP over the row's keys
+// and then sigma = sum_j P (out is not read).
 extern "C" int jf_train_attention_dq(const void* q, const void* k, const void* v,
                                      const void* out, const void* out_lo, const void* dout,
                                      const void* lse, const void* q_ptr, const void* q_ent,
@@ -1379,7 +1438,7 @@ extern "C" int jf_train_attention_dkdv(const void* q, const void* k, const void*
 }
 
 // The tile, registers and shared memory of kernel `which` (0 forward, 1 dQ,
-// 2 dK/dV, 3 the bf16 dK/dV's reduce kernel, 4 the f32 delta kernel) for
+// 2 dK/dV, 3 the bf16 dK/dV's reduce kernel) for
 // (dtype, D), as kernel_attrs
 // writes them into out[8]; -1 for a variant that is not built.
 extern "C" int jf_train_attention_attrs(int which, int dtype, int D, int* out) {

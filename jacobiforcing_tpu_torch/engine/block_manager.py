@@ -1,7 +1,8 @@
 """Host-side paged-KV page allocator with hash-based prefix caching.
 
-Copy of `jacobiforcing_tpu/engine/block_manager.py` (the Python allocator; the
-native C++ one waits for a later slice).  Re-design of the reference
+Copy of `jacobiforcing_tpu/engine/block_manager.py` (the Python allocator,
+which the engine takes under JF_NATIVE_BM=0; the native C++ one is
+`engine/native_block_manager.py`).  Re-design of the reference
 BlockManager (inference_engine/engine/block_manager.py:23-565).
 What carries over:
   * free-list + refcount pages;

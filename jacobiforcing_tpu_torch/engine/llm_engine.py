@@ -33,6 +33,13 @@ prefill, MR chunks and on-policy blocks run eagerly.  `warmup` drives
 synthetic requests through every bucket, which builds the kernels and
 captures the graphs before serving.
 
+KV pages come from the native C++ allocator (`engine/native_block_manager.py`,
+built with the host compiler at first use) unless `JF_NATIVE_BM=0` selects
+the Python one; a native library that cannot be built raises, where the JAX
+engine falls back without a word.  The pool's storage type is the model's,
+or `Config.kv_cache_dtype`, or `kv_dtype=` (which alone reaches
+`torch.float8_e5m2`, as in the JAX engine).
+
 Host randomness is the JAX engine's: a `np.random.RandomState(config.seed)`
 draws the bootstrap draft appended at prefill, every random draft tail of the
 MR arms and the prompt-sampled initial block of each on-policy rollout, so
@@ -64,6 +71,7 @@ from jacobiforcing_tpu_torch.engine.block_manager import BlockManager
 from jacobiforcing_tpu_torch.engine.graphs import DecodePrograms
 from jacobiforcing_tpu_torch.engine.mr_policy import ARM_SINGLE, MRAutoPolicy
 from jacobiforcing_tpu_torch.engine.multiblock import STATE_KEYS, jacobi_chunk_multiblock
+from jacobiforcing_tpu_torch.engine.native_block_manager import NativeBlockManager
 from jacobiforcing_tpu_torch.engine.scheduler import Scheduler
 from jacobiforcing_tpu_torch.engine.sequence import Sequence, SequenceStatus
 from jacobiforcing_tpu_torch.models.qwen import ModelConfig, rope_table
@@ -212,9 +220,6 @@ class LLMEngine:
         if kv_dtype is None and config.kv_cache_dtype:
             kv_dtype = KV_DTYPES[config.kv_cache_dtype]
         kv_dtype = kv_dtype or model_cfg.dtype
-        if kv_dtype == torch.float8_e5m2:
-            raise NotImplementedError("a float8_e5m2 KV cache is not supported by the PyTorch "
-                                      "port yet (float8_e4m3fn and int8 are)")
         page = config.kvcache_page_size
         npages = num_kv_pages or (config.num_kv_pages if config.num_kv_pages > 0 else None)
         if npages is None:
@@ -223,7 +228,12 @@ class LLMEngine:
             model_cfg.num_layers, npages, page, model_cfg.num_kv_heads // tp,
             model_cfg.head_dim, kv_dtype, self.device,
         )
-        self.block_manager = BlockManager(npages, page)
+        # the native C++ allocator unless JF_NATIVE_BM=0, as in the JAX engine;
+        # unlike it, a native library that cannot be built raises
+        if os.environ.get("JF_NATIVE_BM", "1") != "0":
+            self.block_manager = NativeBlockManager(npages, page)
+        else:
+            self.block_manager = BlockManager(npages, page)
         self.scheduler = Scheduler(config, self.block_manager)
         # a preempted sequence's mirrors must be current before it is requeued
         self.scheduler.on_preempt = lambda seq: self._land([seq])
@@ -799,6 +809,10 @@ class LLMEngine:
             or (eos_id >= 0 and len(s) > 0 and s.last_token == eos_id)
             for s in seqs
         )
+        if os.environ.get("JF_MR_POLICY_LOG", "0") == "1":
+            print(f"[mr_policy] arm={arm} B={len(seqs)} toks={toks} "
+                  f"wall={dt*1e3:.1f}ms locked={pol.locked} "
+                  f"drained={drained}", flush=True)
         pol.record(arm, toks, dt, slots=len(seqs), drained=drained)
 
     def _mr_to_single(self, seqs: List[Sequence], N: int) -> None:

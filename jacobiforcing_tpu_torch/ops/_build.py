@@ -1,11 +1,15 @@
-"""Build the port's CUDA kernels at first use and load them with ctypes.
+"""Build the port's native code at first use and load it with ctypes.
 
-Each source under `jacobiforcing_tpu_torch/csrc/` is compiled by `nvcc` into
-a shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds), placed in `build/kernels/` at the repository root under a
-name keyed by a hash of the source, the shared headers (`csrc/*.cuh`) and the
-flags.  A library that is already there is reused.  Nothing is built when
-this module is imported.
+Each CUDA source under `jacobiforcing_tpu_torch/csrc/` (`*.cu`) is compiled by
+`nvcc` into a shared library with a plain C interface (no PyTorch headers, so
+a build takes seconds), placed in `build/kernels/` at the repository root
+under a name keyed by a hash of the source, the shared headers (`csrc/*.cuh`)
+and the flags.  Host C++ sources (`*.cpp`: the native block manager) take the
+host compiler (`$CXX`, else `c++`) into `build/host/`, keyed the same way by
+the source, the compiler and its flags (`build_host`).  A library that is
+already there is reused; every build writes a temporary file and renames it
+into place, so processes that build the same library at once do not clash.
+Nothing is built when this module is imported.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+HOST_BUILD_DIR = BUILD_DIR.parent / "host"
+HOST_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-shared", "-Wall"]
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -94,4 +100,48 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = ctypes.CDLL(str(build(name)))
             _LIBS[name] = lib
+        return lib
+
+
+def host_compiler() -> str:
+    return os.environ.get("CXX") or "c++"
+
+
+def host_library_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes())
+    h.update(" ".join([host_compiler(), *HOST_FLAGS]).encode())
+    return HOST_BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compile csrc/<name>.cpp with the host compiler unless it is built
+    already; returns the library.  Raises RuntimeError if the compiler is
+    missing or fails."""
+    path = host_library_path(name)
+    if path.exists():
+        return path
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [host_compiler(), *HOST_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")]
+    try:
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              timeout=300)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise RuntimeError(f"building {name}.cpp failed: {' '.join(cmd)}: {e}") from e
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"building {name}.cpp failed (rc {proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stdout}")
+    os.replace(tmp, path)
+    return path
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cpp, building it first if needed."""
+    with _LOCK:
+        key = f"host:{name}"
+        lib = _LIBS.get(key)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_host(name)))
+            _LIBS[key] = lib
         return lib

@@ -9,7 +9,8 @@ refused.  `paged_attention_cuda.launches` counts its launches.
 
 The cache may be stored narrower than the queries.  Served (query, cache)
 pairs: the cache in the query's type; a bfloat16 cache under float32 queries;
-`torch.float8_e4m3fn` or `torch.int8` under either, and then (and only then)
+`torch.float8_e4m3fn`, `torch.float8_e5m2` or `torch.int8` under either, and
+then (and only then)
 with both per-row dequant scale planes `k_scale_l` / `v_scale_l`
 [KH, num_slots], float32, contiguous.
 """
@@ -25,8 +26,9 @@ from jacobiforcing_tpu_torch.ops import _build
 
 SUPPORTED_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2, torch.int8: 3}
-SCALED_CACHE_DTYPES = (torch.float8_e4m3fn, torch.int8)
+_CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2, torch.int8: 3,
+                torch.float8_e5m2: 4}
+SCALED_CACHE_DTYPES = (torch.float8_e4m3fn, torch.int8, torch.float8_e5m2)
 # (query dtype, cache dtype) pairs the kernels are built for
 SUPPORTED_PAIRS = frozenset(
     [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
@@ -91,7 +93,7 @@ def check_cache_dtype(q, k_cache_l, v_cache_l, k_scale_l, v_scale_l):
         raise ValueError(
             f"K/V cache dtype {k_cache_l.dtype}/{v_cache_l.dtype} under {q.dtype} queries is not "
             f"supported: the cache must be stored in the query dtype, as bfloat16 under float32 "
-            f"queries, or as float8_e4m3fn / int8 with per-row scales")
+            f"queries, or as float8_e4m3fn / float8_e5m2 / int8 with per-row scales")
     scaled = k_cache_l.dtype in SCALED_CACHE_DTYPES
     if (k_scale_l is None) != (v_scale_l is None):
         raise ValueError("k_scale_l and v_scale_l must be given together")

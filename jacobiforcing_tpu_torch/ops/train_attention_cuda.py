@@ -4,7 +4,9 @@
 Port of the TPU kernel `jacobiforcing_tpu/ops/pallas/train_attention.py::
 splash_train_attention`, forward and backward; the plain version is
 `ops/train_attention.train_attention_ref` under autograd.  float32 inputs take
-the fp32 CUDA-core kernels (32-key tiles; dQ after a delta kernel); bfloat16
+the fp32 CUDA-core kernels (32-key tiles; dQ takes sigma = sum_j P and delta
+= sum_j (P / sigma) dP in a first sweep over the keys, and both backward
+kernels use P / sigma); bfloat16
 inputs take the tensor-core kernels (64-key tiles, `train_fwd_tc_kernel`,
 `train_dq_tc_kernel` with delta folded in, `train_dkdv_tc_kernel` +
 `train_dkdv_reduce_kernel`); the bf16 forward also writes `out_lo`, the
@@ -32,9 +34,9 @@ from jacobiforcing_tpu_torch.ops.train_attention import (
     KEY_TILE, TC_KEY_TILE, VARIANTS, TileMap, classify_tiles)
 
 _FNS = None
-# which kernel of the C interface: forward, dQ (with delta), dK/dV, the bf16
-# dK/dV's partial-sum kernel and the f32 delta kernel
-_WHICH = ("fwd", "dq", "dkdv", "dkdv_reduce", "delta")
+# which kernel of the C interface: forward, dQ (with delta), dK/dV and the
+# bf16 dK/dV's partial-sum kernel
+_WHICH = ("fwd", "dq", "dkdv", "dkdv_reduce")
 
 
 def _kernels():
@@ -110,7 +112,7 @@ def variants():
             for D in SUPPORTED_HEAD_DIMS:
                 buf = (ctypes.c_int * len(_ATTR_FIELDS))()
                 rc = fn(which, code, D, buf)
-                if rc == -1:  # not a kernel of this dtype (f32 reduce, bf16 delta)
+                if rc == -1:  # not a kernel of this dtype (the f32 reduce)
                     continue
                 if rc != 0:
                     raise RuntimeError(f"jf_train_attention_attrs({name}, {dtype}, {D}) failed "
@@ -129,6 +131,11 @@ def _tiles(q, k, layout, key_tile=KEY_TILE) -> TileMap:
 def _tc(q) -> bool:
     """bf16 inputs run the tensor-core kernels on 64-key tiles."""
     return q.dtype == torch.bfloat16
+
+
+def _delta_shape(q):
+    """What dQ hands dK/dV: bf16 delta [L, NH]; f32 delta and sigma [2, L, NH]."""
+    return tuple(q.shape[:2]) if _tc(q) else (2,) + tuple(q.shape[:2])
 
 
 def _query_lists(q, k, layout):
@@ -174,10 +181,14 @@ def train_attention_fwd_cuda(q, k, v, layout
 
 def train_attention_dq_cuda(q, k, v, out, lse, dout, layout, out_lo=None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dq [L, NH, D], delta [L, NH] float32 = rowsum(dout * out), which the
-    dK/dV call reads).  bf16: one kernel over the forward's pair lists that
-    also takes delta, from out + out_lo (the forward's third output, which it
-    needs); f32: a delta kernel, then the fp32 dQ kernel (out_lo None)."""
+    """(dq [L, NH, D], delta float32, which the dK/dV call reads).  bf16:
+    delta [L, NH], taken by the one kernel over the forward's pair lists as
+    rowsum(dout * (out + out_lo)) (out_lo is the forward's third output,
+    which it needs); f32: delta [2, L, NH], the fp32 dQ kernel's first sweep
+    over the keys: sigma = sum_j P of the recomputed P and delta = sum_j (P /
+    sigma) dP, then sigma (both backward kernels use P / sigma, so that
+    sum_j dS is zero to rounding, as in autograd's softmax backward; out is
+    checked but not read, out_lo None)."""
     others = [("out", out, q.shape, q.dtype), ("dout", dout, q.shape, q.dtype),
               ("lse", lse, q.shape[:2], torch.float32)]
     if _tc(q):
@@ -188,7 +199,7 @@ def train_attention_dq_cuda(q, k, v, out, lse, dout, layout, out_lo=None
         raise ValueError("out_lo is the bf16 forward's; the f32 dQ takes none")
     check_inputs(q, k, v, layout, others)
     dq = torch.empty_like(q)
-    delta = torch.empty_like(lse)
+    delta = torch.empty(_delta_shape(q), dtype=torch.float32, device=q.device)
     _call("dq", [t.data_ptr() for t in (q, k, v, out)]
           + [None if out_lo is None else out_lo.data_ptr()]
           + [t.data_ptr() for t in (dout, lse)] + _query_lists(q, k, layout)
@@ -205,7 +216,7 @@ def train_attention_dkdv_cuda(q, k, v, lse, delta, dout, layout
     buffer of this call, in chunk order."""
     check_inputs(q, k, v, layout, [("dout", dout, q.shape, q.dtype),
                                    ("lse", lse, q.shape[:2], torch.float32),
-                                   ("delta", delta, q.shape[:2], torch.float32)])
+                                   ("delta", delta, _delta_shape(q), torch.float32)])
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     ptrs = [t.data_ptr() for t in (q, k, v, dout, lse, delta)]

@@ -1,4 +1,4 @@
-"""AdamW and the warm-up/cosine schedule of the trainers, equal to optax's.
+"""AdamW and the learning-rate schedules of the trainers, equal to optax's.
 
 `AdamW(lr, b1, b2, eps, weight_decay)` computes what `optax.adamw` computes
 with the same arguments: decoupled weight decay on EVERY parameter (norms and
@@ -42,6 +42,22 @@ def warmup_cosine_schedule(init_value: float, peak_value: float, warmup_steps: i
         c = min(float(count - warmup_steps), float(cosine_steps))
         cosine = 0.5 * (1 + math.cos(math.pi * c / cosine_steps))
         return peak_value * ((1 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0,
+                          exponent: float = 1.0) -> Schedule:
+    """`optax.cosine_decay_schedule` as a function of the step count: from
+    `init_value` down a cosine to `alpha * init_value` at `decay_steps`, and
+    there after."""
+    if not decay_steps > 0:
+        raise ValueError(f"the cosine needs decay_steps > 0, got {decay_steps=}")
+
+    def schedule(count: int) -> float:
+        c = min(float(count), float(decay_steps))
+        cosine = 0.5 * (1 + math.cos(math.pi * c / decay_steps))
+        return init_value * ((1 - alpha) * cosine ** exponent + alpha)
 
     return schedule
 

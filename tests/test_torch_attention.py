@@ -273,7 +273,7 @@ def test_kernel_wrapper_accepts_the_served_dtype_pairs(q_dtype, cache_dtype):
 
 @pytest.mark.parametrize("q_dtype,cache_dtype,scales,match", [
     (torch.bfloat16, torch.float32, False, "not supported"),
-    (torch.float32, torch.float8_e5m2, True, "not supported"),
+    (torch.float32, torch.float8_e4m3fnuz, True, "not supported"),
     (torch.float32, torch.float16, False, "not supported"),
     (torch.float32, torch.int8, False, "needs k_scale_l"),
     (torch.bfloat16, torch.float8_e4m3fn, False, "needs k_scale_l"),

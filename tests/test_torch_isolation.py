@@ -64,6 +64,34 @@ def test_the_parallel_modules_are_covered():
         assert f"jacobiforcing_tpu_torch/parallel/{mod}.py" in names
 
 
+def test_the_last_slice_modules_are_covered():
+    """The apps, the legacy trainer and the native block manager's binding
+    are among the files checked above."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ("apps/chat_stream", "apps/chat_web", "apps/grid_search", "apps/analyze_grid",
+                "apps/baseline_chart", "apps/train_tpf_demo", "train/legacy_cllm",
+                "engine/native_block_manager"):
+        assert f"jacobiforcing_tpu_torch/{mod}.py" in names
+
+
+# JAX modules the port needs no counterpart of: the TPU calibration of the
+# auto-policy's constants, the TPU platform set-up, and the Pallas kernels,
+# whose counterparts are the CUDA sources under csrc/ and their wrappers
+NO_COUNTERPART = ("ops/calibrate.py", "utils/platform.py", "ops/pallas/")
+
+
+def test_every_jax_module_has_a_counterpart():
+    jax_mods = {str(p.relative_to(ROOT / "jacobiforcing_tpu"))
+                for p in (ROOT / "jacobiforcing_tpu").rglob("*.py")}
+    port_mods = {str(p.relative_to(ROOT / "jacobiforcing_tpu_torch"))
+                 for p in (ROOT / "jacobiforcing_tpu_torch").rglob("*.py")}
+    missing = sorted(m for m in jax_mods - port_mods if not m.startswith(NO_COUNTERPART))
+    assert not missing, f"JAX modules without a counterpart in the port: {missing}"
+    # each exemption names something that is there
+    for m in NO_COUNTERPART:
+        assert any(j.startswith(m) for j in jax_mods), m
+
+
 def test_port_process_never_loads_jax():
     code = """
 import sys, torch
@@ -120,6 +148,11 @@ with tempfile.TemporaryDirectory() as out:
                             max_steps=2, log_steps=1), model_cfg=cfg, dataset=Rows(rows),
                 device="cpu", log_fn=lambda *_: None)
 assert res["step"] == 2
+from jacobiforcing_tpu_torch.apps import (analyze_grid, baseline_chart, chat_stream, chat_web,
+                                          grid_search, train_tpf_demo)
+from jacobiforcing_tpu_torch.engine.native_block_manager import NativeBlockManager
+from jacobiforcing_tpu_torch.train.legacy_cllm import make_legacy_train_step
+assert type(qllm.engine.block_manager) is NativeBlockManager
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "jaxlib", "optax", "flax", "safetensors", "jacobiforcing_tpu")]
 print("LOADED", bad)

@@ -326,3 +326,21 @@ def test_demo_checkpoint_mr_equals_ar():
     _same(ar, mr)
     assert llm.stats["mr_full"] + llm.stats["mr_nocand"] + llm.stats["mr_ra_only"] > 0
     assert llm.stats["generated_tokens"] - gen0 > llm.stats["jacobi_iterations"]  # TPF > 1
+
+
+def test_mr_policy_log_prints_the_jax_line(monkeypatch, capsys):
+    """JF_MR_POLICY_LOG=1 prints the JAX engine's `[mr_policy]` line for every
+    policy-dispatched MR chunk, before the policy records it; unset, nothing."""
+    prompts = make_prompts(256, sizes=(5, 9))
+    sp = _mr_sp(16, max_iters=512)
+    make_engine(jacobi_mr_auto_policy=True, jacobi_chunk_tokens=8).generate(prompts, sp)
+    assert "[mr_policy]" not in capsys.readouterr().out
+    monkeypatch.setenv("JF_MR_POLICY_LOG", "1")
+    eng = make_engine(jacobi_mr_auto_policy=True, jacobi_chunk_tokens=8)
+    eng.generate(prompts, sp)
+    lines = [l for l in capsys.readouterr().out.splitlines() if l.startswith("[mr_policy]")]
+    (_, snap), = eng.mr_policy_snapshot().items()
+    assert len(lines) == snap["calls"] >= 1
+    for l in lines:
+        assert all(f" {k}=" in f" {l[12:]}" for k in ("arm", "B", "toks", "wall", "locked",
+                                                      "drained"))

@@ -570,13 +570,6 @@ def test_unknown_quantization_strings_raise(kw):
         Config(**kw)
 
 
-def test_e5m2_kv_cache_is_refused():
-    _, _, cfg, params = _tiny_pair()
-    with pytest.raises(NotImplementedError, match="float8_e5m2"):
-        LLMEngine(Config(**ENGINE_KW), model_cfg=cfg, params=params, num_kv_pages=8,
-                  kv_dtype=torch.float8_e5m2, device="cpu")
-
-
 @pytest.mark.parametrize("kind,row_bytes", [("", 2 * 16), ("fp8", 16 + 4), ("int8", 16 + 4),
                                             ("bf16", 2 * 16)])
 def test_kv_pool_sizing_counts_the_narrow_type_and_its_scales(monkeypatch, kind, row_bytes):

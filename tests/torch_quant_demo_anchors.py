@@ -2,8 +2,8 @@
 
     JAX_PLATFORMS=cpu python -m tests.torch_quant_demo_anchors [config ...]
 
-For each quantized configuration (`int8`, `w8a8`, `fp8` KV, `int8` KV; all by
-default) the JAX engine serves the 64 held-out prompts of
+For each quantized configuration (`int8`, `w8a8`, `fp8` KV, `int8` KV, `e5m2`
+KV; all by default) the JAX engine serves the 64 held-out prompts of
 `assets/tpf_demo_n32_v7` in f32 on the CPU with greedy Jacobi (page 16, N=32,
 max_tokens 96, the settings of tests/test_torch_engine.py), and the port's
 engine serves them on the CPU with `ar`, `jacobi` and `mr` (policy off).  It
@@ -34,7 +34,10 @@ CONFIGS = {
     "w8a8": dict(quantization="w8a8"),
     "fp8": dict(kv_cache_dtype="fp8"),
     "int8kv": dict(kv_cache_dtype="int8"),
+    "e5m2": {},  # reached through kv_dtype= alone, in both packages
 }
+# engine arguments beside the configuration: (JAX engine, port LLM)
+ENGINE_KW = {"e5m2": (dict(kv_dtype=jnp.float8_e5m2), dict(kv_dtype=torch.float8_e5m2))}
 
 
 def main(names):
@@ -53,8 +56,9 @@ def main(names):
 
     for name in names:
         mc, params = jload(DEMO, dtype=jnp.float32)
+        jkw, tkw = ENGINE_KW.get(name, ({}, {}))
         jeng = JLLMEngine(JConfig(**kw, **CONFIGS[name]), model_cfg=mc, params=params,
-                          num_kv_pages=1024)
+                          num_kv_pages=1024, **jkw)
         want, iters = [], []
         for p in prompts:
             it0 = jeng.stats["jacobi_iterations"]
@@ -68,7 +72,7 @@ def main(names):
         print(f"[anchor] {name}: tokens per prompt, first 16: {[len(s) for s in want[:16]]}",
               flush=True)
         llm = LLM(model=DEMO, device="cpu", dtype=torch.float32, num_kv_pages=1024,
-                  jacobi_mr_auto_policy=False, **kw, **CONFIGS[name])
+                  jacobi_mr_auto_policy=False, **kw, **CONFIGS[name], **tkw)
         for strategy, blocks in (("autoregressive", 1), ("jacobi", 1), (MR, 2)):
             got = [llm.engine.generate([p], sp(SamplingParams, strategy, blocks))[0]["token_ids"]
                    for p in prompts]
