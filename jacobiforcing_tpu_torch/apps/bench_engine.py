@@ -23,7 +23,10 @@ copied from the JAX app) and `JF_ENFORCE_EAGER=1` (no CUDA graphs).
 
     python -m jacobiforcing_tpu_torch.apps.bench_engine --B 8 --max-tokens 128
 
-prints the result as one JSON line (and the profile report under PROFILE=1).
+prints the result as one JSON line; under PROFILE=1 the engine's profile
+report of the measured run (`utils/profiling.report`: each span's total and
+self time, the counters, tokens per forward and per second, the programs)
+goes to standard error first.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import argparse
 import dataclasses
 import json
 import os
+import sys
 import time
 from typing import Optional
 
@@ -134,9 +138,7 @@ def run_engine_bench(
     eng.generate(prompts[:B], sp, use_tqdm=False)
     eng._mr_policies.clear()  # measured run starts with a fresh probe window
 
-    if profiling.get_profiler():  # PROFILE=1: window out warmup
-        profiling.reset_profiler()
-
+    stats0 = dict(eng.stats)  # the report's window leaves warm-up out
     seqs = [eng.add_request(p, s) for p, s in zip(prompts, [sp] * R)]
     t0 = time.perf_counter()
     it0 = eng.stats["jacobi_iterations"]
@@ -197,6 +199,9 @@ def run_engine_bench(
         for k in ("mr_full", "mr_nocand", "mr_ra_only", "mr_single"):
             if k in eng.stats:
                 out[k] = int(eng.stats[k])
+    if eng.spans.requested:
+        print(profiling.report(profiling.stats_delta(stats0, eng.stats), dt, eng.programs),
+              file=sys.stderr, flush=True)
     eng.exit()
     return out
 
@@ -221,11 +226,6 @@ def main(argv=None) -> None:
         chunk_iters=a.chunk_iters, requests=a.requests, max_model_len=a.max_model_len,
         chunk_tokens=a.chunk_tokens, strategy=a.strategy, temperature=a.temperature,
         kv_cache_dtype=a.kv_cache_dtype, device=a.device)), flush=True)
-    from jacobiforcing_tpu_torch.utils.profiling import get_profiler
-
-    prof = get_profiler()
-    if prof:
-        print(prof.report())
 
 
 if __name__ == "__main__":

@@ -43,7 +43,6 @@ import torch.distributed as dist
 
 from jacobiforcing_tpu_torch.engine import runner
 from jacobiforcing_tpu_torch.parallel.collectives import Group
-from jacobiforcing_tpu_torch.utils.profiling import get_profiler
 
 
 class ARProgram:
@@ -113,7 +112,7 @@ class DecodePrograms:
                 graph, prog.out = self._capture(key, step)
                 prog.step = self._replay(key, graph, prog.out)
             else:
-                prog.step = _recorded(key, step)
+                prog.step = step
             self.programs[key] = prog
         return prog
 
@@ -139,7 +138,7 @@ class DecodePrograms:
                 graph, _ = self._capture(key, trip)
                 prog.trip = self._replay(key, graph, None)
             else:
-                prog.trip = _recorded(key, trip)
+                prog.trip = trip
             self.programs[key] = prog
         return prog
 
@@ -180,14 +179,12 @@ class DecodePrograms:
         self.launches[key] = captured
         self.pool_bytes[key] = torch.cuda.memory_reserved(self.device) - reserved0
         self.capture_s[key] = time.perf_counter() - t0
-        _record(key)  # the capture is the bucket's miss
         return graph, out
 
     def _replay(self, key: tuple, graph: torch.cuda.CUDAGraph, out):
         counted = [(f, n) for f, n in zip(_kernel_wrappers(), self.launches[key]) if n]
 
         def replay():
-            _record(key)
             graph.replay()
             for f, n in counted:
                 f.launches += n
@@ -202,17 +199,3 @@ def _kernel_wrappers():
     from jacobiforcing_tpu_torch.ops.paged_attention_cuda import paged_attention_cuda
 
     return (paged_attention_cuda,)
-
-
-def _record(key: tuple) -> None:
-    prof = get_profiler()
-    if prof:
-        prof.record_bucket(key[0], key[1:])
-
-
-def _recorded(key: tuple, fn: Callable):
-    def call():
-        _record(key)
-        return fn()
-
-    return call

@@ -82,7 +82,7 @@ from jacobiforcing_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh, make_mesh, s
 from jacobiforcing_tpu_torch.parallel.sharding import shard_params
 from jacobiforcing_tpu_torch.utils.device import resolve_device
 from jacobiforcing_tpu_torch.utils.loader import load_checkpoint, move_params
-from jacobiforcing_tpu_torch.utils.profiling import get_profiler
+from jacobiforcing_tpu_torch.utils.profiling import Spans
 
 
 KV_DTYPES = {"fp8": torch.float8_e4m3fn, "int8": torch.int8, "bf16": torch.bfloat16}
@@ -176,9 +176,6 @@ class LLMEngine:
     ):
         self.config = config
         self.device = resolve_device(device)
-        # what the profiler's timers wait for (PROFILE=1); nothing on the CPU
-        self._sync = (lambda: torch.cuda.synchronize(self.device)) \
-            if self.device.type == "cuda" else None
         tp = config.tensor_parallel_size
         # groups the engine creates are its own to destroy at exit
         self._owns_mesh = mesh is None and tp > 1
@@ -234,7 +231,18 @@ class LLMEngine:
             self.block_manager = NativeBlockManager(npages, page)
         else:
             self.block_manager = BlockManager(npages, page)
-        self.scheduler = Scheduler(config, self.block_manager)
+        # counters, and the spans' seconds (`utils/profiling.py`): the
+        # scheduler adds each admission's queue wait, a commit the first
+        # output token's wait since the request's prefill and, where a Jacobi
+        # chunk ran, the rows its trips forwarded (`trip_slots`: bucket rows x
+        # trips, of which `jacobi_iterations` were rows of running sequences)
+        self.stats: Dict[str, float] = {
+            "prefill_tokens": 0, "generated_tokens": 0, "jacobi_iterations": 0,
+            "ar_steps": 0, "chunk_calls": 0, "chunk_forwards": 0, "trip_slots": 0,
+            "admissions": 0, "queue_wait_s": 0.0, "first_commits": 0, "first_commit_s": 0.0,
+        }
+        self.spans = Spans(self.stats)
+        self.scheduler = Scheduler(config, self.block_manager, self.stats)
         # a preempted sequence's mirrors must be current before it is requeued
         self.scheduler.on_preempt = lambda seq: self._land([seq])
 
@@ -243,10 +251,6 @@ class LLMEngine:
         max_margin = max(config.jacobi_block_len * config.jacobi_max_blocks, 256)
         self.pages_bucket = (config.max_model_len + max_margin + page - 1) // page
         self.cap_tokens = config.max_model_len + max_margin + 1
-        self.stats: Dict[str, float] = {
-            "prefill_tokens": 0, "generated_tokens": 0, "jacobi_iterations": 0,
-            "ar_steps": 0, "chunk_calls": 0, "chunk_forwards": 0,
-        }
         self._mr_policies: Dict[tuple, MRAutoPolicy] = {}
         # the AR step and the Jacobi trips, one program per shape bucket:
         # CUDA graphs on the card unless enforce_eager
@@ -326,36 +330,39 @@ class LLMEngine:
 
     # ------------------------------------------------------------------
     def step(self) -> List[Sequence]:
-        seqs, is_prefill = self.scheduler.schedule()
-        flushed: List[Sequence] = []
-        if not seqs:
-            if self._pending:
-                # drain: commit the outstanding chunks so that their sequences
-                # can retire (the scheduler sees a finish only once committed)
-                flushed = self._flush_pending()
-                self.scheduler.postprocess(flushed)
-                return [s for s in flushed if s.is_finished]
-            return []
-        if is_prefill:
-            if self._pending:
-                # the decode groups change after this prefill: land their
-                # pending work first (and let any finish free its pages)
-                flushed = self._flush_pending()
-                self.scheduler.postprocess(flushed)
-            max_b = self.config.batch_buckets[-1]
-            for i in range(0, len(seqs), max_b):
-                self._run_prefill(seqs[i : i + max_b])
-        else:
-            self._run_decode(seqs)
-        self.scheduler.postprocess(seqs)
-        # a pending chunk whose sequences all retired in this step is inert
-        # (every finish condition is mirrored on the device): drop it
-        for sig in [k for k, p in self._pending.items()
-                    if all(s.status is not SequenceStatus.RUNNING for s in p.seqs)]:
-            del self._pending[sig]
-        finished = [s for s in seqs if s.is_finished]
-        in_batch = set(map(id, seqs))
-        return finished + [s for s in flushed if s.is_finished and id(s) not in in_batch]
+        with self.spans["step"]:
+            with self.spans["schedule"]:
+                seqs, is_prefill = self.scheduler.schedule()
+            flushed: List[Sequence] = []
+            if not seqs:
+                if self._pending:
+                    # drain: commit the outstanding chunks so that their sequences
+                    # can retire (the scheduler sees a finish only once committed)
+                    flushed = self._flush_pending()
+                    self.scheduler.postprocess(flushed)
+                    return [s for s in flushed if s.is_finished]
+                return []
+            if is_prefill:
+                if self._pending:
+                    # the decode groups change after this prefill: land their
+                    # pending work first (and let any finish free its pages)
+                    flushed = self._flush_pending()
+                    self.scheduler.postprocess(flushed)
+                max_b = self.config.batch_buckets[-1]
+                with self.spans["prefill"]:
+                    for i in range(0, len(seqs), max_b):
+                        self._run_prefill(seqs[i : i + max_b])
+            else:
+                self._run_decode(seqs)
+            self.scheduler.postprocess(seqs)
+            # a pending chunk whose sequences all retired in this step is inert
+            # (every finish condition is mirrored on the device): drop it
+            for sig in [k for k, p in self._pending.items()
+                        if all(s.status is not SequenceStatus.RUNNING for s in p.seqs)]:
+                del self._pending[sig]
+            finished = [s for s in seqs if s.is_finished]
+            in_batch = set(map(id, seqs))
+            return finished + [s for s in flushed if s.is_finished and id(s) not in in_batch]
 
     # ------------------------------------------------------------------
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -394,17 +401,11 @@ class LLMEngine:
             starts[i] = c
             totals[i] = c + seg_lens[i]
         bt = self._pad_block_table(seqs, B)
-        prof = get_profiler(self._sync)
-        if prof:
-            prof.record_bucket("prefill_segment", (B, T))
-            prof.start("prefill.forward")
         self.kv, _, _ = runner.prefill(
             self.params, self.model_cfg, self.rope, self._tensor(ids),
             self._tensor(starts), self._tensor(totals), self._tensor(totals),
             self.kv, bt, n_out=1, group=self.group,
         )
-        if prof:
-            prof.stop("prefill.forward")
         for i, s in enumerate(seqs):
             s.num_cached_tokens += seg_lens[i]
         self.stats["prefill_tokens"] += sum(seg_lens)
@@ -448,10 +449,6 @@ class LLMEngine:
         prompts_a[: len(seqs)] = prompts_l
 
         bt = self._pad_block_table(seqs, B)
-        prof = get_profiler(self._sync)
-        if prof:
-            prof.record_bucket("prefill", (B, T, n_out))
-            prof.start("prefill.forward")
         self.kv, last_logits, draft = runner.prefill(
             self.params, self.model_cfg, self.rope, self._tensor(ids),
             self._tensor(starts_a), self._tensor(totals_a), self._tensor(prompts_a),
@@ -459,15 +456,16 @@ class LLMEngine:
         )
         # only the AR rows read the [B, V] logits; Jacobi rows take the draft
         need_logits = any(not self._is_jacobi(s) for s in seqs)
-        if need_logits:
-            last_logits = last_logits.float().cpu().numpy()
-        draft = draft.cpu().numpy()
-        if prof:
-            prof.stop("prefill.forward")
+        with self.spans["prefill.wait"]:
+            if need_logits:
+                last_logits = last_logits.float().cpu().numpy()
+            draft = draft.cpu().numpy()
+        now = time.perf_counter()
         self.stats["prefill_tokens"] += sum(len(x) for x in suffixes)
 
         for i, s in enumerate(seqs):
             sp = s.sampling_params
+            s.t_prefilled = now
             if self._is_jacobi(s):
                 s.prefill_draft = draft[i]  # [n_out] greedy continuation
             else:
@@ -478,7 +476,7 @@ class LLMEngine:
                     tok = int(np.argmax(logits + g))
                 else:
                     tok = int(np.argmax(last_logits[i]))
-                s.extend_tokens([tok])
+                self._extend(s, [tok])
                 self.stats["generated_tokens"] += 1
             s.num_cached_tokens = len(s) - 1
 
@@ -514,7 +512,9 @@ class LLMEngine:
                     group[i : i + max_b], L, K, C, -1 if ignore_eos else self.config.eos)
         for (L, top_k, use_top_p, greedy_mode, thr), group in op_groups.items():
             for i in range(0, len(group), max_b):
-                self._onpolicy_block(group[i : i + max_b], L, top_k, use_top_p, greedy_mode, thr)
+                with self.spans["onpolicy"]:
+                    self._onpolicy_block(group[i : i + max_b], L, top_k, use_top_p,
+                                         greedy_mode, thr)
         for (L, ignore_eos, nongreedy, top_k, use_top_p), group in groups.items():
             for i in range(0, len(group), max_b):
                 self._jacobi_chunk(group[i : i + max_b], L, -1 if ignore_eos else self.config.eos,
@@ -531,27 +531,23 @@ class LLMEngine:
             last[i] = s.last_token
             lens[i] = len(s)
             active[i] = True
-        prog = self.programs.ar(B)
-        prog.load(last_tokens=torch.from_numpy(last), seq_lens=torch.from_numpy(lens),
-                  block_tables=self._host_block_table(seqs, B),
-                  active=torch.from_numpy(active), temperature=torch.from_numpy(temps))
-        return prog.step().cpu().numpy()
+        with self.spans["ar"]:
+            prog = self.programs.ar(B)
+            prog.load(last_tokens=torch.from_numpy(last), seq_lens=torch.from_numpy(lens),
+                      block_tables=self._host_block_table(seqs, B),
+                      active=torch.from_numpy(active), temperature=torch.from_numpy(temps))
+            out = prog.step()
+            with self.spans["ar.wait"]:
+                return out.cpu().numpy()
 
     def _ar_step(self, seqs: List[Sequence]) -> None:
         B = _bucket(len(seqs), self.config.batch_buckets)
         temps = np.zeros((B,), np.float32)
         for i, s in enumerate(seqs):
             temps[i] = s.sampling_params.temperature
-        prof = get_profiler(self._sync)
-        if prof:
-            prof.start("forward")
-            prof.add_iteration()
         next_tokens = self._ar_forward(seqs, temps)
-        if prof:
-            prof.stop("forward")
-            prof.add_tokens(len(seqs))
         for i, s in enumerate(seqs):
-            s.extend_tokens([int(next_tokens[i])])
+            self._extend(s, [int(next_tokens[i])])
             s.num_cached_tokens = len(s) - 1
             self.stats["generated_tokens"] += 1
         self.stats["ar_steps"] += 1
@@ -578,58 +574,61 @@ class LLMEngine:
         """Load one Jacobi chunk into its bucket's program and launch its
         first trip.  The carried state comes from `handles` (the device
         outputs of the group's previous chunk) or is built on the host."""
-        B = _bucket(len(seqs), self.config.batch_buckets)
-        capacity = np.zeros((B,), np.int32)
-        len_limit = np.zeros((B,), np.int32)
-        temps = np.ones((B,), np.float32)
-        top_ps = np.ones((B,), np.float32)
-        max_iters = np.ones((B,), np.int32)
-        for i, s in enumerate(seqs):
-            capacity[i] = min(self.block_manager.capacity_tokens(s), self.cap_tokens - 1)
-            # absolute (prompt + max_tokens), so a chunk dispatched before the
-            # previous one is committed needs no new budget
-            len_limit[i] = len(s) + max(0, s.max_tokens - s.num_completion_tokens)
-            max_iters[i] = min(s.sampling_params.jacobi_max_iterations, 2**30)
-            temps[i] = s.sampling_params.temperature
-            top_ps[i] = s.sampling_params.top_p
-        if handles is None:
-            tokens = np.zeros((B, self.cap_tokens), np.int32)
-            cur_len = np.ones((B,), np.int32)
-            eos = np.ones((B,), bool)  # padding rows inert
-            iters = np.zeros((B,), np.int32)
-            draft = np.zeros((B, L), np.int32)
+        with self.spans["dispatch"]:
+            B = _bucket(len(seqs), self.config.batch_buckets)
+            capacity = np.zeros((B,), np.int32)
+            len_limit = np.zeros((B,), np.int32)
+            temps = np.ones((B,), np.float32)
+            top_ps = np.ones((B,), np.float32)
+            max_iters = np.ones((B,), np.int32)
             for i, s in enumerate(seqs):
-                tokens[i, : len(s)] = s.token_ids
-                cur_len[i] = len(s)
-                # a sequence whose EOS a flush just committed stays inert
-                # until the scheduler retires it
-                eos[i] = eos_id >= 0 and s.num_completion_tokens > 0 and s.last_token == eos_id
-                iters[i] = s.jacobi_iters
-                if s.draft is not None:
-                    draft[i] = s.draft
-                else:
-                    pf = s.prefill_draft
-                    ncopy = 0
-                    if pf is not None:
-                        ncopy = min(len(pf), L - 1)
-                        draft[i, 1 : 1 + ncopy] = pf[:ncopy]
-                        s.prefill_draft = None
-                    if ncopy < L - 1:
-                        draft[i, 1 + ncopy :] = self.rng.randint(
-                            0, self.model_cfg.vocab_size, L - 1 - ncopy
-                        )
-                draft[i, 0] = s.last_token
-            handles = {k: torch.from_numpy(v) for k, v in
-                       zip(_HANDLES, (tokens, cur_len, draft, eos, iters))}
-        prog = self.programs.jacobi(B, L, nongreedy, top_k, use_top_p)
-        prog.buf.load(**handles, cur_len0=handles["cur_len"], iters0=handles["iters"],
-                      generated=0, block_tables=self._host_block_table(seqs, B),
-                      capacity=torch.from_numpy(capacity), len_limit=torch.from_numpy(len_limit),
-                      max_iters=torch.from_numpy(max_iters), temperature=torch.from_numpy(temps),
-                      top_p=torch.from_numpy(top_ps), eos_id=eos_id)
-        chunk = runner.ChunkRun(prog.trip, prog.buf, self.config.jacobi_chunk_tokens,
-                                self.config.jacobi_chunk_iters)
-        return chunk.start()
+                capacity[i] = min(self.block_manager.capacity_tokens(s), self.cap_tokens - 1)
+                # absolute (prompt + max_tokens), so a chunk dispatched before the
+                # previous one is committed needs no new budget
+                len_limit[i] = len(s) + max(0, s.max_tokens - s.num_completion_tokens)
+                max_iters[i] = min(s.sampling_params.jacobi_max_iterations, 2**30)
+                temps[i] = s.sampling_params.temperature
+                top_ps[i] = s.sampling_params.top_p
+            if handles is None:
+                tokens = np.zeros((B, self.cap_tokens), np.int32)
+                cur_len = np.ones((B,), np.int32)
+                eos = np.ones((B,), bool)  # padding rows inert
+                iters = np.zeros((B,), np.int32)
+                draft = np.zeros((B, L), np.int32)
+                for i, s in enumerate(seqs):
+                    tokens[i, : len(s)] = s.token_ids
+                    cur_len[i] = len(s)
+                    # a sequence whose EOS a flush just committed stays inert
+                    # until the scheduler retires it
+                    eos[i] = eos_id >= 0 and s.num_completion_tokens > 0 and s.last_token == eos_id
+                    iters[i] = s.jacobi_iters
+                    if s.draft is not None:
+                        draft[i] = s.draft
+                    else:
+                        pf = s.prefill_draft
+                        ncopy = 0
+                        if pf is not None:
+                            ncopy = min(len(pf), L - 1)
+                            draft[i, 1 : 1 + ncopy] = pf[:ncopy]
+                            s.prefill_draft = None
+                        if ncopy < L - 1:
+                            draft[i, 1 + ncopy :] = self.rng.randint(
+                                0, self.model_cfg.vocab_size, L - 1 - ncopy
+                            )
+                    draft[i, 0] = s.last_token
+                handles = {k: torch.from_numpy(v) for k, v in
+                           zip(_HANDLES, (tokens, cur_len, draft, eos, iters))}
+            prog = self.programs.jacobi(B, L, nongreedy, top_k, use_top_p)
+            prog.buf.load(**handles, cur_len0=handles["cur_len"], iters0=handles["iters"],
+                          generated=0, block_tables=self._host_block_table(seqs, B),
+                          capacity=torch.from_numpy(capacity),
+                          len_limit=torch.from_numpy(len_limit),
+                          max_iters=torch.from_numpy(max_iters),
+                          temperature=torch.from_numpy(temps),
+                          top_p=torch.from_numpy(top_ps), eos_id=eos_id)
+            chunk = runner.ChunkRun(prog.trip, prog.buf, self.config.jacobi_chunk_tokens,
+                                    self.config.jacobi_chunk_iters, self.spans)
+            return chunk.start()
 
     def _finish_chunk(self, chunk: runner.ChunkRun, seqs: List[Sequence], iters0: np.ndarray,
                       stat_key: Optional[str]) -> _PendingChunk:
@@ -643,44 +642,53 @@ class LLMEngine:
         committed while its sequence is still RUNNING with the committed
         length it had at dispatch; other rows were inert, or their work is
         discarded on purpose."""
-        prof = get_profiler(self._sync)
-        if prof:
-            prof.start("forward")
-        host = pending.host.get()
-        window, starts, cur_out, iters_out, draft_out, gen = (host[k] for k in _READBACK)
-        if prof:
-            prof.stop("forward")
-        iters0 = pending.iters0
-        n = len(pending.seqs)
-        for i, s in enumerate(pending.seqs):
-            if s.status is not SequenceStatus.RUNNING or len(s) != pending.expected_lens[i]:
-                continue
-            off = len(s) - starts[i]
-            s.extend_tokens(window[i, off : off + (cur_out[i] - len(s))].tolist())
-            s.num_cached_tokens = len(s) - 1
-            s.draft = draft_out[i]
-            s.jacobi_iters = int(iters_out[i])
-            self.stats["generated_tokens"] += int(gen[i])
-        it_delta = int(iters_out[:n].sum() - iters0[:n].sum())
-        if prof:
-            prof.add_tokens(int(gen[:n].sum()))
-            prof.add_iteration(it_delta)
-        self.stats["jacobi_iterations"] += it_delta
-        if pending.stat_key:
-            self.stats[pending.stat_key] = self.stats.get(pending.stat_key, 0) + it_delta
-        # loop trips this chunk = the slowest row's iterations
-        self.stats["chunk_forwards"] += int((iters_out[:n] - iters0[:n]).max(initial=0))
-        self.stats["chunk_calls"] += 1
+        with self.spans["commit"]:
+            with self.spans["commit.wait"]:
+                host = pending.host.get()
+            window, starts, cur_out, iters_out, draft_out, gen = (host[k] for k in _READBACK)
+            iters0 = pending.iters0
+            n = len(pending.seqs)
+            for i, s in enumerate(pending.seqs):
+                if s.status is not SequenceStatus.RUNNING or len(s) != pending.expected_lens[i]:
+                    continue
+                off = len(s) - starts[i]
+                self._extend(s, window[i, off : off + (cur_out[i] - len(s))].tolist())
+                s.num_cached_tokens = len(s) - 1
+                s.draft = draft_out[i]
+                s.jacobi_iters = int(iters_out[i])
+                self.stats["generated_tokens"] += int(gen[i])
+            it_delta = int(iters_out[:n].sum() - iters0[:n].sum())
+            self.stats["jacobi_iterations"] += it_delta
+            if pending.stat_key:
+                self.stats[pending.stat_key] = self.stats.get(pending.stat_key, 0) + it_delta
+            # loop trips this chunk = the slowest row's iterations
+            self._count_trips(int((iters_out[:n] - iters0[:n]).max(initial=0)), len(iters0))
 
     def _flush_pending(self) -> List[Sequence]:
         """Commit every outstanding chunk; returns their sequences, whose
         state may have changed, for the caller to postprocess."""
         touched: List[Sequence] = []
-        for pending in self._pending.values():
-            self._commit_chunk(pending)
-            touched.extend(pending.seqs)
-        self._pending.clear()
+        with self.spans["flush"]:
+            for pending in self._pending.values():
+                self._commit_chunk(pending)
+                touched.extend(pending.seqs)
+            self._pending.clear()
         return touched
+
+    def _extend(self, s: Sequence, toks: List[int]) -> None:
+        """Commit `toks` to `s`; the first output token it gets adds its wait
+        since the request's prefill to `stats["first_commit_s"]`."""
+        s.extend_tokens(toks)
+        if s.t_first is None and s.num_completion_tokens:
+            s.t_first = time.perf_counter()
+            self.stats["first_commit_s"] += s.t_first - s.t_prefilled
+            self.stats["first_commits"] += 1
+
+    def _count_trips(self, trips: int, B: int) -> None:
+        """One chunk or block of `trips` loop trips over a bucket of `B` rows."""
+        self.stats["chunk_forwards"] += trips
+        self.stats["trip_slots"] += B * trips
+        self.stats["chunk_calls"] += 1
 
     def _land(self, seqs: List[Sequence]) -> None:
         """Flush before reading the mirrors of `seqs` (their length, draft,
@@ -905,92 +913,84 @@ class LLMEngine:
         spawn_override: Optional[int] = None,
     ) -> None:
         """One BATCHED chunk of multiblock + rejection-recycling decoding."""
-        W = 2 * N
-        pad_id = max(self.config.pad, 0)
-        B = _bucket(len(seqs), self.config.batch_buckets)
-        n = len(seqs)
+        with self.spans["mr"]:
+            W = 2 * N
+            pad_id = max(self.config.pad, 0)
+            B = _bucket(len(seqs), self.config.batch_buckets)
+            n = len(seqs)
 
-        for s in seqs:
-            if s.mb_state is None:
-                pf = s.prefill_draft if s.prefill_draft is not None else np.zeros(0, np.int32)
-                draft0 = np.full((N,), pad_id, np.int32)
-                m = min(len(pf), N)
-                draft0[:m] = pf[:m]
-                if m < N:
-                    draft0[m:] = self.rng.randint(0, self.model_cfg.vocab_size, N - m)
-                s.prefill_draft = None
-                s.mb_state = self._mb_bootstrap(s, draft0, N, K, C)
+            for s in seqs:
+                if s.mb_state is None:
+                    pf = s.prefill_draft if s.prefill_draft is not None else np.zeros(0, np.int32)
+                    draft0 = np.full((N,), pad_id, np.int32)
+                    m = min(len(pf), N)
+                    draft0[:m] = pf[:m]
+                    if m < N:
+                        draft0[m:] = self.rng.randint(0, self.model_cfg.vocab_size, N - m)
+                    s.prefill_draft = None
+                    s.mb_state = self._mb_bootstrap(s, draft0, N, K, C)
 
-        def stack(key):
-            first = np.asarray(seqs[0].mb_state[key])
-            out = np.zeros((B,) + first.shape, first.dtype)
+            def stack(key):
+                first = np.asarray(seqs[0].mb_state[key])
+                out = np.zeros((B,) + first.shape, first.dtype)
+                for i, s in enumerate(seqs):
+                    out[i] = s.mb_state[key]
+                return self._tensor(out)
+
+            tokens = np.zeros((B, self.cap_tokens), np.int32)
+            cur_len = np.ones((B,), np.int32)
+            eos = np.ones((B,), bool)  # padding rows inert
+            iters = np.zeros((B,), np.int32)
+            capacity = np.zeros((B,), np.int32)
+            max_new = np.zeros((B,), np.int32)
+            max_iters = np.ones((B,), np.int32)
+            spawn_thr = np.full((B,), N, np.int32)
+            la_start = np.zeros((B,), np.int32)
             for i, s in enumerate(seqs):
-                out[i] = s.mb_state[key]
-            return self._tensor(out)
+                sp = s.sampling_params
+                tokens[i, : len(s)] = s.token_ids
+                cur_len[i] = len(s)
+                # a sequence whose EOS a flush just committed stays inert
+                eos[i] = eos_id >= 0 and s.num_completion_tokens > 0 and s.last_token == eos_id
+                iters[i] = s.jacobi_iters
+                capacity[i] = min(self.block_manager.capacity_tokens(s), self.cap_tokens - 1)
+                max_new[i] = max(0, s.max_tokens - s.num_completion_tokens)
+                max_iters[i] = min(sp.jacobi_max_iterations, 2**30)
+                spawn_thr[i] = (
+                    spawn_override if spawn_override is not None
+                    else int(math.ceil(sp.jacobi_spawn_ratio * N))
+                )
+                la_start[i] = (
+                    la_override if la_override is not None
+                    else int(math.ceil(sp.jacobi_lookahead_start_ratio * N))
+                )
 
-        tokens = np.zeros((B, self.cap_tokens), np.int32)
-        cur_len = np.ones((B,), np.int32)
-        eos = np.ones((B,), bool)  # padding rows inert
-        iters = np.zeros((B,), np.int32)
-        capacity = np.zeros((B,), np.int32)
-        max_new = np.zeros((B,), np.int32)
-        max_iters = np.ones((B,), np.int32)
-        spawn_thr = np.full((B,), N, np.int32)
-        la_start = np.zeros((B,), np.int32)
-        for i, s in enumerate(seqs):
-            sp = s.sampling_params
-            tokens[i, : len(s)] = s.token_ids
-            cur_len[i] = len(s)
-            # a sequence whose EOS a flush just committed stays inert
-            eos[i] = eos_id >= 0 and s.num_completion_tokens > 0 and s.last_token == eos_id
-            iters[i] = s.jacobi_iters
-            capacity[i] = min(self.block_manager.capacity_tokens(s), self.cap_tokens - 1)
-            max_new[i] = max(0, s.max_tokens - s.num_completion_tokens)
-            max_iters[i] = min(sp.jacobi_max_iterations, 2**30)
-            spawn_thr[i] = (
-                spawn_override if spawn_override is not None
-                else int(math.ceil(sp.jacobi_spawn_ratio * N))
+            res = jacobi_chunk_multiblock(
+                self.params, self.model_cfg, self.rope, self.kv,
+                self._tensor(tokens), self._tensor(cur_len),
+                *(stack(k) for k in STATE_KEYS),
+                self._tensor(eos), self._tensor(iters), self._pad_block_table(seqs, B),
+                self._tensor(capacity), self._tensor(max_new), eos_id, pad_id,
+                self._tensor(spawn_thr), self._tensor(la_start), self._tensor(max_iters),
+                N=N, K=K, C=C, W=W,
+                chunk_budget=self.config.jacobi_chunk_tokens,
+                chunk_iters=self.config.jacobi_chunk_iters, group=self.group,
             )
-            la_start[i] = (
-                la_override if la_override is not None
-                else int(math.ceil(sp.jacobi_lookahead_start_ratio * N))
-            )
-
-        prof = get_profiler(self._sync)
-        if prof:
-            prof.record_bucket("jacobi_mr", (B, N, K, C))
-            prof.start("forward")
-        res = jacobi_chunk_multiblock(
-            self.params, self.model_cfg, self.rope, self.kv,
-            self._tensor(tokens), self._tensor(cur_len),
-            *(stack(k) for k in STATE_KEYS),
-            self._tensor(eos), self._tensor(iters), self._pad_block_table(seqs, B),
-            self._tensor(capacity), self._tensor(max_new), eos_id, pad_id,
-            self._tensor(spawn_thr), self._tensor(la_start), self._tensor(max_iters),
-            N=N, K=K, C=C, W=W,
-            chunk_budget=self.config.jacobi_chunk_tokens,
-            chunk_iters=self.config.jacobi_chunk_iters, group=self.group,
-        )
-        host = {k: v.cpu().numpy() for k, v in res.items() if k != "kv"}
-        toks, cur_out, iters_out, gen = (
-            host[k] for k in ("tokens", "cur_len", "iters", "generated"))
-        if prof:
-            prof.stop("forward")
-            prof.add_tokens(int(gen[:n].sum()))
-            prof.add_iteration(int(iters_out[:n].sum() - iters[:n].sum()))
-        for i, s in enumerate(seqs):
-            s.extend_tokens(toks[i, len(s) : cur_out[i]].tolist())
-            s.num_cached_tokens = len(s) - 1
-            s.jacobi_iters = int(iters_out[i])
-            for k in STATE_KEYS:
-                s.mb_state[k] = host[k][i]
-            self.stats["generated_tokens"] += int(gen[i])
-        self.stats["jacobi_iterations"] += int(iters_out[:n].sum() - iters[:n].sum())
-        # loop trips this chunk = the slowest row's iterations
-        self.stats["chunk_forwards"] += int((iters_out[:n] - iters[:n]).max(initial=0))
-        self.stats["chunk_calls"] += 1
-        for name, count in zip(("mr_full", "mr_nocand", "mr_ra_only"), host["tiers"].tolist()):
-            self.stats[name] = self.stats.get(name, 0) + int(count)
+            host = {k: v.cpu().numpy() for k, v in res.items() if k != "kv"}
+            toks, cur_out, iters_out, gen = (
+                host[k] for k in ("tokens", "cur_len", "iters", "generated"))
+            for i, s in enumerate(seqs):
+                self._extend(s, toks[i, len(s) : cur_out[i]].tolist())
+                s.num_cached_tokens = len(s) - 1
+                s.jacobi_iters = int(iters_out[i])
+                for k in STATE_KEYS:
+                    s.mb_state[k] = host[k][i]
+                self.stats["generated_tokens"] += int(gen[i])
+            self.stats["jacobi_iterations"] += int(iters_out[:n].sum() - iters[:n].sum())
+            # loop trips this chunk = the slowest row's iterations
+            self._count_trips(int((iters_out[:n] - iters[:n]).max(initial=0)), B)
+            for name, count in zip(("mr_full", "mr_nocand", "mr_ra_only"), host["tiers"].tolist()):
+                self.stats[name] = self.stats.get(name, 0) + int(count)
 
     # ------------------------------------------------------------------
     def _onpolicy_block(self, seqs: List[Sequence], L: int, top_k: int, use_top_p: bool,
@@ -1051,7 +1051,7 @@ class LLMEngine:
             if not active[i]:
                 continue
             new = tokens_out[i, len(s) : cur_out[i]].tolist()
-            s.extend_tokens(new)
+            self._extend(s, new)
             s.num_cached_tokens = len(s) - 1
             s.op_iters += int(iters_out[i])
             s.op_fwds += int(fwds_out[i])
@@ -1072,8 +1072,7 @@ class LLMEngine:
             self.stats["generated_tokens"] += len(new)
             self.stats["jacobi_iterations"] += n_it
         # loop trips of this block = the slowest row's iterations
-        self.stats["chunk_forwards"] += int(iters_out[: len(seqs)].max(initial=0))
-        self.stats["chunk_calls"] += 1
+        self._count_trips(int(iters_out[: len(seqs)].max(initial=0)), B)
 
     # ------------------------------------------------------------------
     def exit(self) -> None:

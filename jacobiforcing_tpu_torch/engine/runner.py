@@ -48,6 +48,7 @@ from jacobiforcing_tpu_torch.models.qwen import (
 from jacobiforcing_tpu_torch.ops.kv_cache import KVCache
 from jacobiforcing_tpu_torch.ops.sampling import gumbel, sample, target_probs
 from jacobiforcing_tpu_torch.parallel.collectives import Group
+from jacobiforcing_tpu_torch.utils.profiling import NoSpans
 
 
 def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -428,12 +429,15 @@ class ChunkRun:
     """One chunk's trips, driven from the host with one flag read per trip.
     `start` reads whether any row is active and launches the first trip,
     then returns, so the caller can work on the host while it runs;
-    `finish` runs the rest.  No trip runs with every row inactive."""
+    `finish` runs the rest.  No trip runs with every row inactive.
+    `spans` (the engine's `utils.profiling.Spans`) times `finish` as
+    `trips` and each flag read as `trips.wait`."""
 
     def __init__(self, trip: Callable[[], None], buf: ChunkBuffers, chunk_budget: int,
-                 chunk_iters: int):
+                 chunk_iters: int, spans=None):
         self.trip, self.buf = trip, buf
         self.chunk_budget, self.chunk_iters = chunk_budget, chunk_iters
+        self.spans = spans if spans is not None else NoSpans()
         self.go = False
 
     def start(self) -> "ChunkRun":
@@ -445,16 +449,19 @@ class ChunkRun:
     def finish(self) -> Dict[str, torch.Tensor]:
         """Run the remaining trips; returns the chunk's outputs, copied out
         of the buffers (which the program's next chunk reuses)."""
-        while self.go:
-            self.go = bool(self.buf.flag)  # the one device-to-host read per trip
-            if self.go:
-                self.trip()
-        buf = self.buf
-        window, win_start = _commit_window(buf.cur_len0, buf.tokens, buf.draft.shape[1],
-                                           self.chunk_budget, self.chunk_iters)
-        out = {k: getattr(buf, k).clone() for k in _LOOP}
-        out.update(new_tokens=window, win_start=win_start)
-        return out
+        with self.spans["trips"]:
+            wait = self.spans["trips.wait"]
+            while self.go:
+                with wait:
+                    self.go = bool(self.buf.flag)  # the one device-to-host read per trip
+                if self.go:
+                    self.trip()
+            buf = self.buf
+            window, win_start = _commit_window(buf.cur_len0, buf.tokens, buf.draft.shape[1],
+                                               self.chunk_budget, self.chunk_iters)
+            out = {k: getattr(buf, k).clone() for k in _LOOP}
+            out.update(new_tokens=window, win_start=win_start)
+            return out
 
 
 def _chunk(step_of, kv, tokens, cur_len, draft, eos, iters, block_tables, capacity, len_limit,

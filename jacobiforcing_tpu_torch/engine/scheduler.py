@@ -13,12 +13,17 @@ inference_engine/engine/scheduler.py:8-97).  Behavior preserved:
     appended by the decoder, only the bound/EOS check remains).
 
 Decode batches are grouped by (strategy, jacobi block_len L) by the engine.
+
+Each admission to a prefill batch adds its wait in the queue to the engine's
+`stats["queue_wait_s"]` and 1 to `stats["admissions"]` (a preempted sequence
+waits and is admitted again).
 """
 
 from __future__ import annotations
 
+import time
 from collections import deque
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from jacobiforcing_tpu_torch.config import Config
 from jacobiforcing_tpu_torch.engine.block_manager import BlockManager
@@ -26,9 +31,10 @@ from jacobiforcing_tpu_torch.engine.sequence import Sequence, SequenceStatus
 
 
 class Scheduler:
-    def __init__(self, config: Config, block_manager: BlockManager):
+    def __init__(self, config: Config, block_manager: BlockManager, stats: Dict[str, float]):
         self.config = config
         self.block_manager = block_manager
+        self.stats = stats
         self.waiting: deque[Sequence] = deque()
         self.running: deque[Sequence] = deque()
         self.num_preemptions = 0
@@ -37,6 +43,7 @@ class Scheduler:
         self.on_preempt: Optional[Callable[[Sequence], None]] = None
 
     def add(self, seq: Sequence) -> None:
+        seq.t_queued = time.perf_counter()
         self.waiting.append(seq)
 
     @property
@@ -66,6 +73,9 @@ class Scheduler:
             self.waiting.popleft()
             self.block_manager.allocate_prompt(seq, self._jacobi_margin(seq))
             seq.status = SequenceStatus.RUNNING
+            seq.t_admitted = time.perf_counter()
+            self.stats["queue_wait_s"] += seq.t_admitted - seq.t_queued
+            self.stats["admissions"] += 1
             self.running.append(seq)
             batch.append(seq)
             budget -= need
@@ -113,6 +123,7 @@ class Scheduler:
         seq.status = SequenceStatus.WAITING
         seq.prefill_draft = None
         seq.draft = None
+        seq.t_queued = time.perf_counter()
         self.waiting.appendleft(seq)
 
     def postprocess(self, seqs: List[Sequence]) -> None:

@@ -48,6 +48,13 @@ class Sequence:
         # of LLMEngine._mb_bootstrap); its positions are semantic, so it
         # survives a preemption and re-prefill
         self.mb_state: Optional[dict] = None
+        # host-clock stamps (`time.perf_counter`): appended to the scheduler's
+        # waiting queue (again at a preemption), admitted to a prefill batch,
+        # that prefill's read-back, the first commit of an output token
+        self.t_queued: Optional[float] = None
+        self.t_admitted: Optional[float] = None
+        self.t_prefilled: Optional[float] = None
+        self.t_first: Optional[float] = None
 
     def __len__(self) -> int:
         return len(self.token_ids)

@@ -284,23 +284,28 @@ def test_warmup_tags_pages_and_clean_state():
 
 
 def test_profiler_counters_and_report(monkeypatch):
-    """PROFILE=1 (tests/test_apps.py:72): timers, tokens, iterations and one
-    bucket counter per program; eagerly every trip is a use."""
+    """PROFILE=1 (tests/test_apps.py:72): the engine's spans record, and the
+    report over a window's stats delta holds each span's total and self
+    time, the counters, tokens per forward and per second, and one program
+    per bucket (eagerly none is a CUDA graph).  Nothing waits for the
+    device on the profiler's behalf."""
     monkeypatch.setenv("PROFILE", "1")
-    profiling.reset_profiler()
     eng = make_engine()
+    assert eng.spans.requested
+    before = dict(eng.stats)
     eng.generate(jtests.make_prompts(256)[:2], _jac_sps(SamplingParams, 1, base=12)[0])
-    prof = profiling.get_profiler()
-    assert prof is not None and prof.sync is None  # the CPU has nothing to sync
-    s = prof.summary()
-    assert s["tokens"] >= 24 and s["iterations"] >= 1 and s["tokens_per_forward"] >= 1.0
-    assert prof.bucket_uses[("jacobi", 2, 8)] == eng.stats["chunk_forwards"]
-    assert prof.counts["forward"] == eng.stats["chunk_calls"]
-    rep = prof.report()
-    assert "shape buckets" in rep and "tokens_per_second" in rep
-    profiling.reset_profiler()
+    delta = profiling.stats_delta(before, eng.stats)
+    assert delta["generated_tokens"] >= 24 and delta["jacobi_iterations"] >= 1
+    assert delta["trip_slots"] >= delta["jacobi_iterations"]
+    assert ("jacobi", 2, 8) in eng.programs.programs and eng.programs.num_graphs == 0
+    rep = profiling.report(delta, 1.0, eng.programs)
+    for name in ("step", "schedule", "prefill", "dispatch", "trips", "trips.wait", "commit",
+                 "commit.wait"):
+        assert f"\n  {name} " in rep, name
+    assert "tokens_per_forward" in rep and "tokens_per_second" in rep and "programs: " in rep
+    assert not hasattr(eng, "_sync")
     monkeypatch.delenv("PROFILE")
-    assert profiling.get_profiler() is None
+    assert not make_engine().spans.requested
 
 
 # keys of the JAX app's result (jacobiforcing_tpu/apps/bench_engine.py)
