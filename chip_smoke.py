@@ -5,6 +5,7 @@
 
     python3 chip_smoke.py kernel,train_kernel   # the kernels against their plain versions only
     python3 chip_smoke.py int4                  # the int4 kernels and their path alone
+    python3 chip_smoke.py pointwise             # the decoder's fused pointwise kernels alone
     python3 chip_smoke.py apps                  # the chat / grid / demo-trainer / legacy apps
     python3 chip_smoke.py train_mesh            # DP / fsdp and TP training, two ranks
 
@@ -47,6 +48,16 @@ result line):
      and 2 at the local heads of tensor parallelism (Qwen2.5-7B heads, KH 2
      at TP 2 and KH 1 at TP 4), f32 and bf16, against their plain versions,
      and their times at B 4 (`[tp-kernel-time]`).
+  2b. `pointwise` (also part of `kernel`): the decoder layer's fused
+     pointwise kernels (residual add + RMSNorm, bias / q/k norm + RoPE,
+     SiLU times up) against their plain chains at the benchmark cells'
+     shapes (silu_mul and bias + RoPE bit for bit, the norms within one
+     bf16 ulp; a fault fails the phase), timed beside them and beside their
+     least time by bytes (`[pointwise-time]`), the kernels one eager prefill
+     layer launches, fused and plain (`[pointwise-launches]`), and one eager
+     Jacobi forward's device time by kernel, fused and plain
+     (`[pointwise-attribution]`).  `full` fails if a path of its bf16
+     engines (and `full_quant`'s) launches none of them.
   3. `train_kernel`: a `[kernel-design]` line of the training kernels (bf16
      forward, dQ and dK/dV on tensor cores, every f32 kernel on the fp32
      tile; registers, local bytes, shared memory; it fails on local memory in
@@ -203,7 +214,8 @@ KV_KINDS = {"fp8": torch.float8_e4m3fn, "int8": torch.int8, "e5m2": torch.float8
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEMO = os.path.join(REPO, "assets", "tpf_demo_n32_v7")
 # csrc/<name>.cu
-SOURCES = ("paged_attention", "spec_attention", "train_attention", "int4_matmul")
+SOURCES = ("paged_attention", "spec_attention", "train_attention", "int4_matmul",
+           "decoder_pointwise")
 _TRAIN = dict(source="jacobiforcing_tpu_torch/csrc/train_attention.cu",
               replaces="jacobiforcing_tpu/ops/pallas/train_attention.py:112")
 _PAGED = dict(source="jacobiforcing_tpu_torch/csrc/paged_attention.cu",
@@ -230,6 +242,10 @@ KERNELS = {
     "train_attention_fwd_kh2": _TRAIN,
     "train_attention_dkdv_kh2": _TRAIN,
     "train_attention_dq_kh2": _TRAIN,
+    # the decoder layer's pointwise chains, which XLA fused on the TPU
+    **{name: dict(source="jacobiforcing_tpu_torch/csrc/decoder_pointwise.cu",
+                  replaces="no TPU kernel: XLA fused these chains")
+       for name in ("add_rms_norm", "qkv_rope", "silu_mul")},
 }
 MR = "jacobi_multiblock_rejection_recycling"
 # the JAX package's demo run in f32 on the CPU (2023 on a TPU, whose default
@@ -1049,6 +1065,335 @@ def phase_int4_kernel(timing):
                                                 bound_ms=bms, bound_by=by, max_abs_err=err)
 
 
+# (name, rows, hidden, intermediate, query heads, KV heads, head_dim, qkv bias, q/k norm):
+# coder7b-jacobi-closed32's trip (B 32 x L 64) and a prefill of 1024 rows;
+# qwen3-8b-jacobi-poisson's widths at a trip of 2048 rows
+POINTWISE_SHAPES = (("coder7b_trip", 2048, 3584, 18944, 28, 4, 128, True, False),
+                    ("coder7b_prefill", 1024, 3584, 18944, 28, 4, 128, True, False),
+                    ("qwen3_8b_trip", 2048, 4096, 12288, 32, 8, 128, False, True))
+POINTWISE = ("add_rms_norm", "qkv_rope", "silu_mul")
+# the inputs a timed call reads rotate through copies holding at least this
+# many bytes, so that no call finds its inputs in the 50 MB L2
+SPILL_L2_BYTES = 256e6
+
+
+def ulps(a, b) -> int:
+    """The most bf16 steps between a and b, element by element (-1 where a
+    sign differs and neither is zero)."""
+    ai, bi = (t.view(torch.int16).int() for t in (a, b))
+    zero = (a == 0) | (b == 0)
+    if not bool((((ai < 0) == (bi < 0)) | zero).all()):
+        return -1
+    return int(torch.where(zero, 0, (ai - bi).abs()).max())
+
+
+def pointwise_inputs(R, H, I, NH, KH, D, bias, norm):
+    """One set of random bf16 inputs of the three chains at one shape."""
+    from jacobiforcing_tpu_torch.models import qwen as tq
+
+    def bf16(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, device="cuda")).to(torch.bfloat16)
+
+    B, T = R // 64, 64
+    cfg = tq.ModelConfig(hidden_size=H, num_heads=NH, num_kv_heads=KH, head_dim=D,
+                         max_position=4096)
+    cos_t, sin_t = tq.rope_table(cfg, device="cuda")
+    pos = torch.randint(0, 4096, (B, T), device="cuda")
+    x = dict(h=bf16(R, H), d=bf16(R, H), w=(1 + 0.1 * torch.randn(H, device="cuda")).bfloat16(),
+             g=bf16(R, I, scale=3.0), u=bf16(R, I), q=bf16(B, T, NH, D, scale=4.0),
+             k=bf16(B, T, KH, D, scale=4.0), v=bf16(B, T, KH, D, scale=4.0), cos=cos_t[pos],
+             sin=sin_t[pos], qkv={})
+    if bias:
+        x["qkv"].update(bq=bf16(NH * D), bk=bf16(KH * D), bv=bf16(KH * D))
+    if norm:
+        x["qkv"].update(q_norm=(1 + 0.1 * torch.randn(D, device="cuda")).bfloat16(),
+                        k_norm=(1 + 0.1 * torch.randn(D, device="cuda")).bfloat16())
+    return x
+
+
+def pointwise_chains(R, H, I, NH, KH, D, bias, norm):
+    """{chain: (fused(x), plain(x), bytes the chain needs)} for inputs `x` of
+    `pointwise_inputs`: each input read once, each output written once.  The
+    plain calls are the plain functions of `models/qwen.py`."""
+    from jacobiforcing_tpu_torch.models import qwen as tq
+    from jacobiforcing_tpu_torch.ops import decoder_pointwise_cuda as dpc
+
+    def plain_qkv(x):
+        q, k, v, w = x["q"], x["k"], x["v"], x["qkv"]
+        if bias:
+            q, k, v = (t + w[n].reshape(-1, D) for t, n in ((q, "bq"), (k, "bk"), (v, "bv")))
+        if norm:
+            q, k = tq.rms_norm(q, w["q_norm"], 1e-6), tq.rms_norm(k, w["k_norm"], 1e-6)
+        return tq.apply_rope(q, x["cos"], x["sin"]), tq.apply_rope(k, x["cos"], x["sin"]), v
+
+    def plain_norm(x):
+        s_ = x["h"] + x["d"]
+        return s_, tq.rms_norm(s_, x["w"], 1e-6)
+
+    qkv_bytes = 2 * R * (NH + KH) * D * 2 + (2 * R * KH * D * 2 if bias else 0) + 2 * R * D // 2 * 4
+    return {
+        "add_rms_norm": (lambda x: dpc.add_rms_norm_cuda(x["h"], x["w"], 1e-6, x["d"]),
+                         plain_norm, 4 * R * H * 2 + H * 2),
+        "qkv_rope": (lambda x: dpc.qkv_rope_cuda(x["q"], x["k"], x["v"], x["cos"], x["sin"], 1e-6,
+                                                 **x["qkv"]), plain_qkv, qkv_bytes),
+        "silu_mul": (lambda x: dpc.silu_mul_cuda(x["g"], x["u"]),
+                     lambda x: torch.nn.functional.silu(x["g"].float()).to(torch.bfloat16) * x["u"],
+                     3 * R * I * 2),
+    }
+
+
+def check_pointwise(chain, fused, plain, x, norm):
+    """(max |fused - plain|, fault or None) of one chain on inputs `x`:
+    silu_mul, the residual sum and bias + RoPE bit for bit; the norms within
+    one bf16 ulp; with the q/k norm, the norm alone (RoPE at angle 0) within
+    one ulp and the rotated values within 2^-6 of each pair's magnitude."""
+    out, ref = fused(x), plain(x)
+    out, ref = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+    err = max((o.float() - r.float()).abs().max().item() for o, r in zip(out, ref))
+    if chain == "silu_mul" or (chain == "qkv_rope" and not norm):
+        exact = all(torch.equal(o, r) for o, r in zip(out, ref))
+        return err, None if exact else "not bit for bit"
+    if chain == "add_rms_norm":
+        if not torch.equal(out[0], ref[0]):
+            return err, "the residual sum is not bit for bit"
+        n = ulps(out[1], ref[1])
+        return err, None if 0 <= n <= 1 else f"the norm is {n} ulps off"
+    if not torch.equal(out[2], ref[2]):
+        return err, "v is not bit for bit"
+    flat = dict(x, cos=torch.ones_like(x["cos"]), sin=torch.zeros_like(x["sin"]))
+    normed, ref_normed = fused(flat), plain(flat)
+    n = max(ulps(a, b) for a, b in zip(normed[:2], ref_normed[:2]))
+    if not 0 <= n <= 1:
+        return err, f"the q/k norm is {n} ulps off"
+    for o, r, y in zip(out[:2], ref[:2], ref_normed[:2]):
+        half = y.shape[-1] // 2
+        pair = (y[..., :half].float().abs() + y[..., half:].float().abs()).repeat(1, 1, 1, 2)
+        if not bool(((o.float() - r.float()).abs() <= 2.0 ** -6 * pair).all()):
+            return err, "rotated q/k beyond 2^-6 of the pair's magnitude"
+    return err, None
+
+
+def rotating(fn, sets):
+    """`fn` on the next of `sets` at each call."""
+    import itertools
+
+    turn = itertools.count()
+    return lambda: fn(sets[next(turn) % len(sets)])
+
+
+def plain_forward(params, cfg, ids, positions, kv, tables, lens, rope):
+    """`models.qwen.forward` with the plain functions only and every residual
+    added at the end of its sub-layer, as before the fused kernels, each
+    region in a `record_function` range named after it (the device time of
+    the aten kernels launched in a range is the range's)."""
+    from torch.profiler import record_function
+
+    from jacobiforcing_tpu_torch.models import qwen as tq
+    from jacobiforcing_tpu_torch.ops.attention import paged_attention
+    from jacobiforcing_tpu_torch.ops.kv_cache import write_kv, write_plan
+
+    B, T = ids.shape
+    page, num_slots = kv.page_size, kv.num_slots
+    pos_l = positions.long()
+    eps = cfg.rms_norm_eps
+    with record_function("embedding"):
+        cos, sin = rope[0][pos_l], rope[1][pos_l]
+        idx = torch.gather(tables, 1, (pos_l // page).clamp(0, tables.shape[1] - 1)).long()
+        slots = torch.where(idx < 0, num_slots, idx * page + pos_l % page)
+        plan = write_plan(slots, num_slots, kv.k.shape[1])
+        h = tq.embed(params, cfg, ids)
+    for i in range(cfg.num_layers):
+        w = tq._layer_weights(params["layers"], i)
+        with record_function(PLAIN_REGIONS["add_rms_norm"]):
+            hn = tq.rms_norm(h, w["ln1"], eps)
+        with record_function("linear layers (GEMMs)"):
+            q, kk, vv = hn @ w["wq"], hn @ w["wk"], hn @ w["wv"]
+        with record_function(PLAIN_REGIONS["qkv_rope"]):
+            if cfg.qkv_bias:
+                q, kk, vv = q + w["bq"], kk + w["bk"], vv + w["bv"]
+            q, kk, vv = (t.reshape(B, T, -1, cfg.head_dim) for t in (q, kk, vv))
+            if cfg.qk_norm:
+                q, kk = tq.rms_norm(q, w["q_norm"], eps), tq.rms_norm(kk, w["k_norm"], eps)
+            q, kk = tq.apply_rope(q, cos, sin), tq.apply_rope(kk, cos, sin)
+        with record_function("KV writes"):
+            write_kv(kv.k[i], kv.v[i], kk, vv, slots, plan)
+        o = paged_attention(q, kv.k[i], kv.v[i], tables, lens, positions,
+                            1.0 / math.sqrt(cfg.head_dim), page_size=page)
+        with record_function("linear layers (GEMMs)"):
+            a = o.reshape(B, T, -1) @ w["wo"]
+        with record_function(PLAIN_REGIONS["add_rms_norm"]):
+            h = h + a
+            hn = tq.rms_norm(h, w["ln2"], eps)
+        with record_function("linear layers (GEMMs)"):
+            g, u = hn @ w["w_gate"], hn @ w["w_up"]
+        with record_function(PLAIN_REGIONS["silu_mul"]):
+            m = torch.nn.functional.silu(g.to(tq.acc_dtype(g.dtype))).to(u.dtype) * u
+        with record_function("linear layers (GEMMs)"):
+            m = m @ w["w_down"]
+        with record_function(PLAIN_REGIONS["add_rms_norm"]):
+            h = h + m
+    with record_function(PLAIN_REGIONS["add_rms_norm"]):
+        return tq.rms_norm(h, params["final_norm"], eps), kv
+
+
+PLAIN_REGIONS = {"add_rms_norm": "norms (residual add + RMSNorm)",
+                 "qkv_rope": "q/k/v bias, q/k norm, RoPE", "silu_mul": "SiLU * up"}
+RANGES = {*PLAIN_REGIONS.values(), "linear layers (GEMMs)", "KV writes", "embedding",
+          "greedy head"}
+# device kernels by name: (class, substrings of the kernel's name)
+KERNEL_CLASSES = (("GEMMs", ("gemm", "nvjet", "cutlass", "xmma")),
+                  ("kernel 1", ("paged_attention",)),
+                  *((c, (c + "_kernel",)) for c in POINTWISE),
+                  ("aten elementwise", ("elementwise_kernel",)),
+                  ("aten reduce", ("reduce_kernel",)))
+
+
+def kernel_class(name):
+    return next((c for c, keys in KERNEL_CLASSES if any(k in name for k in keys)), "other")
+
+
+def profile_forward(forward, B=32, L=64, ctx=640, cfg=None):
+    """One eager Jacobi forward of `forward` (`models.qwen.forward` or
+    `plain_forward`) and its greedy head at Qwen2.5-7B widths (B 32 x L 64
+    rows over `ctx` cached tokens), profiled after a warm call: (device ms
+    by kernel class, device ms by `record_function` range, kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from jacobiforcing_tpu_torch.models import qwen as tq
+    from jacobiforcing_tpu_torch.ops.kv_cache import alloc_kv_cache
+
+    cfg = cfg or tq.ModelConfig()
+    params = full_width_params(cfg)
+    rope = tq.rope_table(cfg, device="cuda")
+    page = 256
+    pages = -(-(ctx + L) // page)
+    kv = alloc_kv_cache(cfg.num_layers, B * pages, page, cfg.num_kv_heads, cfg.head_dim,
+                        device="cuda")
+    tables = torch.arange(B * pages, dtype=torch.int32, device="cuda").reshape(B, pages)
+    ids = torch.randint(0, cfg.vocab_size, (B, L), device="cuda")
+    pos = (ctx - 1 + torch.arange(L, device="cuda", dtype=torch.int32))[None].expand(B, L)
+    pos = pos.contiguous()
+    lens = torch.full((B,), ctx - 1 + L, dtype=torch.int32, device="cuda")
+
+    def trip():
+        h, _ = forward(params, cfg, ids, pos, kv, tables, lens, rope)
+        with record_function("greedy head"):
+            tq.greedy_tokens(params, cfg, h)
+
+    with torch.no_grad():
+        trip()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trip()
+            torch.cuda.synchronize()
+    ev = prof.key_averages()
+    # a range also appears as a device-side annotation spanning its kernels
+    kernels = [e for e in ev if e.device_type == DeviceType.CUDA and e.key not in RANGES]
+    by_class = {}
+    for e in kernels:
+        c = kernel_class(e.key)
+        by_class[c] = by_class.get(c, 0.0) + e.self_device_time_total / 1e3
+    by_range = {e.key: e.device_time_total / 1e3 for e in ev
+                if e.device_type == DeviceType.CPU and e.key in RANGES}
+    del params, kv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_class, by_range, sum(e.count for e in kernels)
+
+
+def launches_per_layer(cfg):
+    """Kernels one eager prefill forward of one layer (B 1, T 512) launches
+    through `models.qwen.forward` and through `plain_forward`, counted from
+    the profiler's device records."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from jacobiforcing_tpu_torch.models import qwen as tq
+    from jacobiforcing_tpu_torch.ops.kv_cache import alloc_kv_cache
+
+    cfg = dataclasses.replace(cfg, num_layers=1, vocab_size=4096, max_position=4096)
+    params = tq.init_params(cfg, 0, device="cuda")
+    rope = tq.rope_table(cfg, device="cuda")
+    kv = alloc_kv_cache(1, 4, 256, cfg.num_kv_heads, cfg.head_dim, device="cuda")
+    ids = torch.randint(0, 4096, (1, 512), device="cuda")
+    pos = torch.arange(512, device="cuda", dtype=torch.int32)[None]
+    tables = torch.arange(4, dtype=torch.int32, device="cuda")[None]
+    lens = torch.full((1,), 512, dtype=torch.int32, device="cuda")
+    out = {}
+    for name, forward in (("fused", tq.forward), ("plain", plain_forward)):
+        with torch.no_grad():
+            forward(params, cfg, ids, pos, kv, tables, lens, rope)  # warm
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                forward(params, cfg, ids, pos, kv, tables, lens, rope)
+                torch.cuda.synchronize()
+        out[name] = sum(e.count for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA and e.key not in RANGES)
+    return out
+
+
+def phase_pointwise(timing):
+    """The decoder layer's fused pointwise kernels against their plain chains
+    at the benchmark cells' shapes (`check_pointwise`; a fault fails the
+    phase), then timed beside them: event times (host work per call
+    included) and device times from a CUDA graph of 20 calls, the inputs
+    rotating through copies past the L2, each beside its least time (bytes /
+    3.35 TB/s); the kernels one eager prefill layer launches, fused and
+    plain; and one eager Jacobi forward's device time by kernel class, fused
+    and plain, and by code region, plain."""
+    from jacobiforcing_tpu_torch.models import qwen as tq
+
+    torch.manual_seed(0)
+    faults = []
+    for sname, R, H, I, NH, KH, D, bias, norm in POINTWISE_SHAPES:
+        shape = (R, H, I, NH, KH, D, bias, norm)
+        chains = pointwise_chains(*shape)
+        sets = [pointwise_inputs(*shape)
+                for _ in range(math.ceil(SPILL_L2_BYTES / min(c[2] for c in chains.values())))]
+        for chain, (fused, plain, nbytes) in chains.items():
+            err, fault = check_pointwise(chain, fused, plain, sets[0], norm)
+            if fault:
+                faults.append(f"{chain} {sname}: {fault}")
+            used = sets[:math.ceil(SPILL_L2_BYTES / nbytes)]
+            ms, plain_ms = time_ms(rotating(fused, used)), time_ms(rotating(plain, used))
+            g_ms, g_plain = graph_ms(rotating(fused, used)), graph_ms(rotating(plain, used))
+            bms = nbytes / HBM_BYTES_PER_S * 1e3
+            log(f"[pointwise-time] {chain} {sname} rows={R}: max |fused - plain| {err:.3g}"
+                f"{' FAULT: ' + fault if fault else ''}; fused {ms:.4f} ms, plain chain "
+                f"{plain_ms:.4f} ms; in a CUDA graph (device time, {len(used)} input sets): "
+                f"fused {g_ms:.4f} ms ({bms / g_ms * 100:.1f}% of bound), plain chain "
+                f"{g_plain:.4f} ms; bound {bms:.5f} ms (bytes, {nbytes / 1e6:.1f} MB)")
+            timing[f"pointwise_{chain}_{sname}"] = dict(
+                ms=ms, plain_ms=plain_ms, graph_ms=g_ms, graph_plain_ms=g_plain, bound_ms=bms,
+                bound_by="bytes", max_abs_err=err, library_ms=None)
+        del sets
+        gc.collect()
+        torch.cuda.empty_cache()
+    if faults:
+        raise AssertionError(f"pointwise kernels against their plain chains: {faults}")
+    for name, cfg in (("coder7b", tq.ModelConfig()),
+                      ("qwen3_8b", tq.ModelConfig(hidden_size=4096, intermediate_size=12288,
+                                                  num_heads=32, num_kv_heads=8, qkv_bias=False,
+                                                  qk_norm=True))):
+        n = launches_per_layer(cfg)
+        log(f"[pointwise-launches] {name}: a one-layer eager prefill forward (T 512) "
+            f"launches {n['fused']} kernels fused, {n['plain']} plain")
+    for name, forward in (("plain", plain_forward), ("fused", tq.forward), ("fused", tq.forward),
+                          ("plain", plain_forward)):
+        by_class, by_range, count = profile_forward(forward)
+        total = sum(by_class.values())
+        line = (f"[pointwise-attribution] {name}: one eager Jacobi forward + greedy head, "
+                f"Qwen2.5-7B, B 32 x L 64, ctx 640: device {total:.2f} ms in {count} kernels; "
+                f"by kernel: " + "; ".join(f"{k} {v:.2f} ms ({v / total * 100:.1f}%)"
+                                          for k, v in sorted(by_class.items(),
+                                                             key=lambda kv: -kv[1])))
+        if name == "plain":
+            line += "; by code region (aten kernels): " + "; ".join(
+                f"{k} {v:.2f} ms" for k, v in by_range.items())
+        log(line)
+
+
 def phase_int8_gemm():
     """Orientation for `ops/quant.mm` (library products, no kernel of this
     repository): the int8 x int8 product `torch._int_mm` on a row-major and on
@@ -1449,6 +1794,7 @@ class PlainOnCudaCounter:
 
 
 def _wrappers():
+    from jacobiforcing_tpu_torch.ops import decoder_pointwise_cuda as dpc
     from jacobiforcing_tpu_torch.ops import train_attention_cuda as tac
     from jacobiforcing_tpu_torch.ops.int4_matmul_cuda import int4_matmul_cuda
     from jacobiforcing_tpu_torch.ops.paged_attention_cuda import paged_attention_cuda
@@ -1458,7 +1804,9 @@ def _wrappers():
             "int4_matmul": int4_matmul_cuda,
             "train_attention_fwd": tac.train_attention_fwd_cuda,
             "train_attention_dkdv": tac.train_attention_dkdv_cuda,
-            "train_attention_dq": tac.train_attention_dq_cuda}
+            "train_attention_dq": tac.train_attention_dq_cuda,
+            "add_rms_norm": dpc.add_rms_norm_cuda, "qkv_rope": dpc.qkv_rope_cuda,
+            "silu_mul": dpc.silu_mul_cuda}
 
 
 def zero_counts(counter):
@@ -1890,7 +2238,8 @@ def serve_paths(tag, llm, prompts, sps, counter, shape_out):
     strategy), then each strategy of `sps`.  Every kernel's launch count is
     zeroed before each path and read after it.  Returns (streams, launches,
     plain attention calls on CUDA) by path and fails if a path did not run
-    through the kernels alone or a request came up short."""
+    through the kernels alone (a bfloat16 model's path also through each
+    fused pointwise kernel) or a request came up short."""
     from jacobiforcing_tpu_torch.config import SamplingParams
 
     streams, launches, plain_on_cuda = {}, {}, {}
@@ -1954,6 +2303,9 @@ def serve_paths(tag, llm, prompts, sps, counter, shape_out):
         missed.append("mr (speculative kernel)")
     if any(launches[p]["spec_attention"] for p in launches if p != "mr"):
         missed.append("a non-MR path launched the speculative kernel")
+    if llm.engine.model_cfg.dtype == torch.bfloat16:
+        missed += [f"{p} (no {name} launch)" for p in launches for name in POINTWISE
+                   if launches[p][name] <= 0]
     if missed or not lens_ok:
         raise AssertionError(f"{tag}: paths {missed} did not run through the kernels alone, "
                              f"or a request came up short of 128 tokens ({lens_ok=})")
@@ -4108,6 +4460,8 @@ def main() -> int:
         phase_int4_path(launches)
     if "kernel" in phases:
         phase_int8_gemm()
+    if "kernel" in phases or "pointwise" in phases:
+        run("pointwise", phase_pointwise, timing)
     if "train_kernel" in phases:
         run("train_kernel", phase_train_kernel, timing)
     if "train_f32_time" in phases:
@@ -4162,6 +4516,10 @@ def main() -> int:
             # Qwen2.5-7B (1, 2) run on rows of 4096 tokens
             rows += [(f"{n}_kh2", timing[f"{n}_kh2_L4096"], launches["train_tp2_full"][n])
                      for n in TRAIN_KERNEL_NAMES]
+        # the fused pointwise kernels at cell 1's trip shape, with the launches
+        # of the full-width Jacobi path
+        rows += [(n, timing[f"pointwise_{n}_coder7b_trip"], launches["jacobi"][n])
+                 for n in POINTWISE]
         if "tp" in phases:
             # rank 0 of the TP 2 run: its Jacobi and MR paths on 2 KV heads
             rows += [("paged_attention_kh2", timing["decode_kh2"],

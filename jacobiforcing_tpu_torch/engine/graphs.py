@@ -196,6 +196,7 @@ class DecodePrograms:
 def _kernel_wrappers():
     """The wrappers of the kernels a captured program can launch, each with
     its `launches` count."""
+    from jacobiforcing_tpu_torch.ops import decoder_pointwise_cuda as dpc
     from jacobiforcing_tpu_torch.ops.paged_attention_cuda import paged_attention_cuda
 
-    return (paged_attention_cuda,)
+    return (paged_attention_cuda, dpc.add_rms_norm_cuda, dpc.qkv_rope_cuda, dpc.silu_mul_cuda)

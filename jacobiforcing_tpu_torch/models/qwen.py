@@ -33,6 +33,17 @@ the callers that need the whole distribution.
 Sums are accumulated in float32, or float64 for a float64 model, exactly as
 `acc_dtype` does there.  Qwen2-style (QKV bias) and Qwen3-style (per-head
 q/k RMSNorm) checkpoints are both supported through `ModelConfig` flags.
+
+The decoder layer's pointwise chains (the residual add folded into the next
+RMSNorm, the q/k/v bias / q/k norm and RoPE, SiLU times up) run as one-pass
+CUDA kernels (`ops/decoder_pointwise_cuda`, csrc/decoder_pointwise.cu) on
+bfloat16 tensors on the card outside autograd (`_fuse`), and raise on an
+input they do not take (as kernel 1 does).  Everything else (the CPU,
+float32 / float64 models, training under autograd) runs the plain
+functions, which are the reference.
+For the fold, `forward` and `forward_spec` carry each layer's MLP output to
+the next layer's first norm (or the final norm) instead of adding it at the
+end of the layer: the same additions in the same order.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from jacobiforcing_tpu_torch.ops import decoder_pointwise_cuda as dpc
 from jacobiforcing_tpu_torch.ops.attention import paged_attention, paged_attention_with_block
 from jacobiforcing_tpu_torch.ops.train_attention import masked_attention, train_attention
 from jacobiforcing_tpu_torch.ops.kv_cache import (
@@ -265,6 +277,33 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (out * w.to(xf.dtype)).to(x.dtype)
 
 
+def _fuse(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether a pointwise chain over these tensors takes its fused kernel:
+    bfloat16 on the card, outside autograd."""
+    x = tensors[0]
+    return (x.is_cuda and x.dtype == torch.bfloat16
+            and not (torch.is_grad_enabled()
+                     and any(t is not None and t.requires_grad for t in tensors)))
+
+
+def add_rms_norm(h: torch.Tensor, delta: Optional[torch.Tensor], w: torch.Tensor,
+                 eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(h + delta, rms_norm(h + delta, w, eps)): a residual add and the norm
+    that reads its sum; without `delta`, (h, rms_norm(h, w, eps))."""
+    if _fuse(h, delta, w):
+        return dpc.add_rms_norm_cuda(h, w, eps, delta)
+    if delta is not None:
+        h = h + delta
+    return h, rms_norm(h, w, eps)
+
+
+def silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The MLP's SiLU(gate) * up, the SiLU taken in the accumulation dtype."""
+    if _fuse(g, u):
+        return dpc.silu_mul_cuda(g, u)
+    return F.silu(g.to(acc_dtype(g.dtype))).to(u.dtype) * u
+
+
 def rope_table(cfg: ModelConfig, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
     """RoPE cos/sin [max_position, head_dim // 2] in float32."""
     half = cfg.head_dim // 2
@@ -353,10 +392,10 @@ def forward(
     lp = params["layers"]
     scale = 1.0 / math.sqrt(cfg.head_dim)
     scaled = kv_cache.scaled  # narrow KV with per-row dequant scales
-    h = x
+    h, mlp = x, None  # the residual stream and the MLP output not yet added to it
     for i in range(cfg.num_layers):
         w = _layer_weights(lp, i)
-        q, kk, vv = _layer_qkv(cfg, w, h, cos, sin, group)
+        h, q, kk, vv = _layer_qkv(cfg, w, h, mlp, cos, sin, group)
         k_l, v_l = kv_cache.k[i], kv_cache.v[i]
         ks_l = vs_l = None
         if scaled:
@@ -368,22 +407,35 @@ def forward(
             q, k_l, v_l, block_tables, cache_lens, positions, scale, page_size=page,
             k_scale_l=ks_l, v_scale_l=vs_l,
         )  # [B, T, NH, D]
-        h = _layer_out(cfg, w, h, o, group)
-    h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
-    return h, kv_cache
+        h, mlp = _layer_out(cfg, w, h, o, group)
+    return add_rms_norm(h, mlp, params["final_norm"], cfg.rms_norm_eps)[1], kv_cache
 
 
-def _layer_qkv(cfg: ModelConfig, w, h, cos, sin, group: Group = None):
-    """Pre-norm, QKV projection (+bias / qk-norm) and RoPE of one layer:
-    (q [B,T,NH,D], k [B,T,KH,D], v [B,T,KH,D]), with this rank's heads
-    under a model group (column-parallel: NH and KH are read off the
-    weights' widths)."""
-    B, T, _ = h.shape
+def _layer_qkv(cfg: ModelConfig, w, h, mlp, cos, sin, group: Group = None):
+    """The previous layer's MLP output `mlp` added to the residual stream `h`
+    (None: nothing to add), then pre-norm, QKV projection (+bias / qk-norm)
+    and RoPE of one layer: (h, q [B,T,NH,D], k [B,T,KH,D], v [B,T,KH,D]),
+    with this rank's heads under a model group (column-parallel: NH and KH
+    are read off the weights' widths)."""
     a8 = cfg.act_quant
-    hn = copy_in(rms_norm(h, w["ln1"], cfg.rms_norm_eps), group)
+    h, hn = add_rms_norm(h, mlp, w["ln1"], cfg.rms_norm_eps)
+    hn = copy_in(hn, group)
     q = mm(hn, w["wq"], a8)
     kk = mm(hn, w["wk"], a8)
     vv = mm(hn, w["wv"], a8)
+    return (h, *_bias_norm_rope(cfg, w, q, kk, vv, cos, sin))
+
+
+def _bias_norm_rope(cfg: ModelConfig, w, q, kk, vv, cos, sin):
+    """The q/k/v bias (Qwen2), the per-head q/k RMSNorm (Qwen3) and RoPE on
+    the projections [B, T, heads * D]; returns them as [B, T, heads, D]."""
+    B, T, _ = q.shape
+    heads = [t.reshape(B, T, -1, cfg.head_dim) for t in (q, kk, vv)]
+    bias = [w["bq"], w["bk"], w["bv"]] if cfg.qkv_bias else [None] * 3
+    norm = [w["q_norm"], w["k_norm"]] if cfg.qk_norm else [None] * 2
+    if _fuse(q, kk, vv, *bias, *norm):
+        return dpc.qkv_rope_cuda(*heads, cos, sin, cfg.rms_norm_eps, bq=bias[0], bk=bias[1],
+                                 bv=bias[2], q_norm=norm[0], k_norm=norm[1])
     if cfg.qkv_bias:
         q = q + w["bq"]
         kk = kk + w["bk"]
@@ -398,16 +450,18 @@ def _layer_qkv(cfg: ModelConfig, w, h, cos, sin, group: Group = None):
 
 
 def _layer_out(cfg: ModelConfig, w, h, o, group: Group = None):
-    """Output projection of the attention result `o` and the MLP, both
-    residual.  Under a model group `wo` and `w_down` are row-parallel: `mm`
-    sums the ranks' partial products before the residual add."""
+    """Output projection of the attention result `o`, added to the residual
+    stream, and the MLP: (h + o's projection, the MLP's output), the second
+    for the caller to add.  Under a model group `wo` and `w_down` are
+    row-parallel: `mm` sums the ranks' partial products."""
     B, T, _ = h.shape
     a8 = cfg.act_quant
-    h = h + mm(o.reshape(B, T, -1), w["wo"], a8, group)
-    hn = copy_in(rms_norm(h, w["ln2"], cfg.rms_norm_eps), group)
+    h, hn = add_rms_norm(h, mm(o.reshape(B, T, -1), w["wo"], a8, group), w["ln2"],
+                         cfg.rms_norm_eps)
+    hn = copy_in(hn, group)
     g = mm(hn, w["w_gate"], a8)
     u = mm(hn, w["w_up"], a8)
-    return h + mm(F.silu(g.to(acc_dtype(cfg.dtype))).to(u.dtype) * u, w["w_down"], a8, group)
+    return h, mm(silu_mul(g, u), w["w_down"], a8, group)
 
 
 def forward_spec(
@@ -441,9 +495,10 @@ def forward_spec(
     scale = 1.0 / math.sqrt(cfg.head_dim)
     scaled = kv_cache.scaled
     k_new, v_new = [], []
+    mlp = None
     for i in range(cfg.num_layers):
         w = _layer_weights(lp, i)
-        q, kk, vv = _layer_qkv(cfg, w, h, cos, sin, group)
+        h, q, kk, vv = _layer_qkv(cfg, w, h, mlp, cos, sin, group)
         kk_attn, vv_attn, ks_l, vs_l = kk, vv, None, None
         if scaled:
             # fake-quantize the in-flight block so that speculative
@@ -456,10 +511,10 @@ def forward_spec(
             q, kv_cache.k[i], kv_cache.v[i], block_tables, cache_lens, kk_attn, vv_attn,
             intra_mask, scale, page_size=kv_cache.page_size, k_scale_l=ks_l, v_scale_l=vs_l,
         )
-        h = _layer_out(cfg, w, h, o, group)
+        h, mlp = _layer_out(cfg, w, h, o, group)
         k_new.append(kk)
         v_new.append(vv)
-    h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+    h = add_rms_norm(h, mlp, params["final_norm"], cfg.rms_norm_eps)[1]
     return h, torch.stack(k_new), torch.stack(v_new)
 
 
@@ -512,14 +567,15 @@ def forward_dense(
     def layer(h, w):
         if gather is not None:
             w = {name: gather(name, t) for name, t in w.items()}
-        q, kk, vv = _layer_qkv(cfg, w, h, cos, sin, group)
+        h, q, kk, vv = _layer_qkv(cfg, w, h, None, cos, sin, group)
         if splash_spec is not None:
             o = train_attention(q[0], kk[0], vv[0], prompt_len=p_len, T_pairs=t_pairs,
                                 seq_len=seq_len, N=n_blk, variant=variant,
                                 window_size=window)[None]
         else:
             o = masked_attention(q, kk, vv, attn_mask, scale)
-        return _layer_out(cfg, w, h, o, group)
+        h, mlp = _layer_out(cfg, w, h, o, group)
+        return h + mlp
 
     lp = params["layers"]
     h = x
