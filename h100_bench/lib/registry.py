@@ -1,18 +1,49 @@
 """Find the benchmark's parts by name, under one root folder.
 
-Everything that belongs to one configuration, one traffic mix, one metric or
-one count function sits in a file of its own, named after it:
+Everything that belongs to one configuration, one traffic mix, one metric,
+one count function or one architecture sits in a file of its own, named
+after it:
 
-    configs/<config>.json      the configuration as it is run
+    configs/<config>.json      the configuration as it is run; its "reference"
+                               value names its architecture, <arch>
     traffic/<cell>.json        the cell's traffic mix and engine settings
     metrics/<metric>.py        one reader per metric: compute(run) -> float | None
     counts/<kind>.py           operation and byte counts of one kernel or step kind
-    reference/<name>.py        a configuration's plain reference
     tasks/<task>.py            the loop a traffic file names ("serve")
+    reference/<arch>.py        the architecture's plain reference (below)
+    layouts/<arch>.py          the architecture's checkpoint and shapes (below)
 
-A new configuration, cell or metric is new files plus new entries in
-`BENCHMARK.json`; nothing here changes.  Names may hold dots (`mfu_pct.serve`),
-so modules are loaded from their path, not imported by name.
+An architecture is two files, and the harness's shared code (`run.py`,
+`lib/`, `tasks/`, `metrics/`) names none:
+
+`reference/<arch>.py` imports nothing of the program and holds one class,
+    `Reference(cfg, tensors, fp8=False)`: `tensors` is {checkpoint name:
+    tensor} as `lib/weights.make_hf_tensors` makes it; `fp8=True` is the
+    control, every linear product one precision below bfloat16.
+    `.logits_at(seqs, positions)` returns, for each token list, the float32
+    logits [len(positions), V] at the given positions.
+`layouts/<arch>.py` holds five functions of the configuration dict:
+    `dims(cfg)`: a dict with at least `H` (hidden size), `V` (vocabulary)
+        and `NL` (layers); the logits' head costs 2 * H * V a row.
+    `draws(cfg)`: the checkpoint's tensors as a list of `lib/weights.Draw`,
+        (name, shape, scale) in draw order; one draw per piece the port
+        takes at a time (say, one a layer).
+    `port_params(cfg, pieces, dtype, device)`: the program's (model config,
+        params) through its own loading path; `pieces` yields each draw's
+        {name: tensor} in turn and is drawn lazily, so a port that builds
+        its tensors from a piece and lets the piece go holds at most one
+        piece beyond what it has built.
+    `row_linear_flops(cfg)`: the operations of one token row through the
+        linear layers of every layer (an expert layer: its router, the k
+        experts a token is routed to and its shared experts, not all E).
+    `attention_layers(cfg)`: per layer, (NH, KH, D, window) of its
+        attention: query heads, KV heads, head size, and the keys a query
+        sees back from its own position (None: every earlier key).
+
+A new configuration, cell, metric or architecture is new files plus new
+entries in `BENCHMARK.json`; nothing here changes.  Names may hold dots
+(`mfu_pct.serve`), so modules are loaded from their path, not imported by
+name.
 """
 
 from __future__ import annotations
@@ -20,6 +51,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import sys
+from collections import Counter
 from pathlib import Path
 from types import ModuleType
 from typing import Dict, List
@@ -76,6 +108,12 @@ class Registry:
     def task(self, name: str) -> ModuleType:
         return self._module("tasks", name)
 
+    def layout(self, name: str) -> ModuleType:
+        return self._module("layouts", name)
+
+    def arch(self, cfg: dict) -> "Arch":
+        return Arch(self, cfg)
+
     def configs(self) -> List[str]:
         return self._names("configs", ".json")
 
@@ -84,6 +122,21 @@ class Registry:
 
     def metrics(self) -> List[str]:
         return self._names("metrics", ".py")
+
+
+class Arch:
+    """What the shared code knows of a configuration's architecture, from
+    the two files its "reference" value names: the layout, the reference
+    class, `dims`, the linear operations of a row (`linear_flops`) and
+    `attention`, the layers grouped by attention shape: [((NH, KH, D,
+    window), number of layers)] in the order each shape first appears."""
+
+    def __init__(self, registry: Registry, cfg: dict):
+        self.layout = registry.layout(cfg["reference"])
+        self.Reference = registry.reference(cfg["reference"]).Reference
+        self.dims = self.layout.dims(cfg)
+        self.linear_flops = self.layout.row_linear_flops(cfg)
+        self.attention = list(Counter(map(tuple, self.layout.attention_layers(cfg))).items())
 
 
 def load_benchmark(repo_root: Path) -> dict:

@@ -1,134 +1,99 @@
 """A configuration's weights, made on the device from the run's seed.
 
-The tensors carry the Hugging Face checkpoint names and shapes ([out, in]
-linear weights), as a checkpoint of the configuration would hold them, and
-are made in the configuration's dtype in three calls of one
-`torch.Generator` on the device: every linear weight in one buffer, the
-embedding in a second, every bias and norm weight in a third.  The same seed
-on the same device gives the same bits, so the plain reference makes them
-again after the program has been freed, and the program gets them through
-its own loading path (`utils/loader.assemble_params`).
+The architecture's layout (`layouts/<name>.py`) lists the checkpoint's
+tensors, under their checkpoint names and shapes, grouped into draws.  Each
+draw is one `torch.randn` call of one `torch.Generator` on the device, made
+and scaled in the draw's dtype and cast to the configuration's; the
+generator runs on from draw to draw.  The same seed on the same device gives
+the same bits, so the plain reference makes them again after the program has
+been freed, and the program gets them through its own loading path (the
+layout's `port_params`).
 
-Scales: a linear weight N(0, 1) / sqrt(fan_in), the embedding N(0, 1) * 0.02,
-a bias N(0, 1) * 0.02, a norm weight 1 + N(0, 1) * 0.1.
+Scales, one of three kinds per tensor:
+    an int n     a linear weight: N(0, 1) / sqrt(n), n its fan-in
+    SMALL        N(0, 1) * 0.02 (embeddings, biases)
+    NORM         1 + N(0, 1) * 0.1 (norm weights)
+Consecutive tensors of one scale are scaled in one call.
+
+`draw` yields the draws one at a time and keeps none: a `port_params` that
+turns each piece into the port's own tensors and lets it go holds at most
+one piece beyond what it has built.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32,
           "float64": torch.float64}
+SMALL = "small"
+NORM = "norm"
 
 
-def dims(cfg: dict) -> dict:
-    H = cfg["hidden_size"]
-    NH = cfg["num_attention_heads"]
-    D = cfg.get("head_dim") or H // NH
-    return dict(H=H, NH=NH, KH=cfg.get("num_key_value_heads", NH), D=D,
-                I=cfg["intermediate_size"], V=cfg["vocab_size"], NL=cfg["num_hidden_layers"],
-                qkv_bias=cfg.get("attention_bias", cfg["model_type"] == "qwen2"),
-                qk_norm=cfg["model_type"] == "qwen3",
-                tied=cfg.get("tie_word_embeddings", False))
+class Draw(NamedTuple):
+    """One call of the generator: (name, shape, scale) in buffer order, made
+    and scaled in `dtype` (None: the configuration's), then cast to the
+    configuration's dtype."""
+
+    tensors: List[Tuple[str, tuple, object]]
+    dtype: Optional[torch.dtype] = None
 
 
-def _layouts(cfg: dict) -> Tuple[List[tuple], List[tuple]]:
-    """(matrices, vectors): (name, shape, fan_in or scale kind) in buffer
-    order.  Matrices are grouped by fan-in so that one scaling covers each
-    group."""
-    d = dims(cfg)
-    H, D, I = d["H"], d["D"], d["I"]
-    qs, kvs = d["NH"] * D, d["KH"] * D
-    pre = "model.layers.{}."
-    mats_h, mats_q, mats_i, vecs = [], [], [], []
-    for i in range(d["NL"]):
-        p = pre.format(i)
-        mats_h += [(p + "self_attn.q_proj.weight", (qs, H)),
-                   (p + "self_attn.k_proj.weight", (kvs, H)),
-                   (p + "self_attn.v_proj.weight", (kvs, H)),
-                   (p + "mlp.gate_proj.weight", (I, H)),
-                   (p + "mlp.up_proj.weight", (I, H))]
-        mats_q.append((p + "self_attn.o_proj.weight", (H, qs)))
-        mats_i.append((p + "mlp.down_proj.weight", (H, I)))
-        vecs += [(p + "input_layernorm.weight", (H,), "norm"),
-                 (p + "post_attention_layernorm.weight", (H,), "norm")]
-        if d["qkv_bias"]:
-            vecs += [(p + "self_attn.q_proj.bias", (qs,), "bias"),
-                     (p + "self_attn.k_proj.bias", (kvs,), "bias"),
-                     (p + "self_attn.v_proj.bias", (kvs,), "bias")]
-        if d["qk_norm"]:
-            vecs += [(p + "self_attn.q_norm.weight", (D,), "norm"),
-                     (p + "self_attn.k_norm.weight", (D,), "norm")]
-    if not d["tied"]:
-        mats_h.append(("lm_head.weight", (d["V"], H)))
-    vecs.append(("model.norm.weight", (H,), "norm"))
-    mats = ([(n, s, H) for n, s in mats_h] + [(n, s, qs) for n, s in mats_q]
-            + [(n, s, I) for n, s in mats_i])
-    return mats, vecs
+def _scale(seg: torch.Tensor, scale) -> None:
+    if scale == NORM:
+        seg.mul_(0.1).add_(1.0)
+    elif scale == SMALL:
+        seg.mul_(0.02)
+    elif isinstance(scale, int):
+        seg.mul_(1.0 / math.sqrt(scale))
+    else:
+        raise ValueError(f"unknown scale {scale!r}: an int fan-in, {SMALL!r} or {NORM!r}")
 
 
-def make_hf_tensors(cfg: dict, seed: int, device, dtype=None) -> Dict[str, torch.Tensor]:
-    """{HF name: tensor} on `device`, from `seed`.  Views into three
-    buffers; `model.embed_tokens.weight` is a buffer of its own, so a
-    loader that keeps it as it is does not keep the others alive."""
-    dtype = dtype or DTYPES[cfg["torch_dtype"]]
-    d = dims(cfg)
-    dev = torch.device(device)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
-    mats, vecs = _layouts(cfg)
-    out: Dict[str, torch.Tensor] = {}
-
-    total = sum(math.prod(s) for _, s, _ in mats)
-    buf = torch.randn(total, generator=gen, device=dev, dtype=dtype)
-    off = 0
-    seg_start, seg_fan = 0, mats[0][2]
-    for name, shape, fan in mats + [(None, (0,), None)]:
-        if fan != seg_fan:  # one scaling per group of equal fan-in
-            buf[seg_start:off].mul_(1.0 / math.sqrt(seg_fan))
-            seg_start, seg_fan = off, fan
-        if name is None:
-            break
+def _draw(d: Draw, gen: torch.Generator, dev: torch.device, dtype) -> Dict[str, torch.Tensor]:
+    total = sum(math.prod(s) for _, s, _ in d.tensors)
+    buf = torch.randn(total, generator=gen, device=dev, dtype=d.dtype or dtype)
+    off, seg_start, seg_scale = 0, 0, d.tensors[0][2]
+    for _, shape, scale in d.tensors:
+        if scale != seg_scale:
+            _scale(buf[seg_start:off], seg_scale)
+            seg_start, seg_scale = off, scale
+        off += math.prod(shape)
+    _scale(buf[seg_start:off], seg_scale)
+    buf = buf.to(dtype)
+    out, off = {}, 0
+    for name, shape, _ in d.tensors:
         n = math.prod(shape)
         out[name] = buf[off: off + n].view(shape)
-        off += n
-
-    out["model.embed_tokens.weight"] = torch.randn(
-        (d["V"], d["H"]), generator=gen, device=dev, dtype=dtype).mul_(0.02)
-
-    vtotal = sum(math.prod(s) for _, s, _ in vecs)
-    vbuf = torch.randn(vtotal, generator=gen, device=dev, dtype=torch.float32)
-    off = 0
-    for name, shape, kind in vecs:
-        n = math.prod(shape)
-        seg = vbuf[off: off + n]
-        if kind == "norm":
-            seg.mul_(0.1).add_(1.0)
-        else:
-            seg.mul_(0.02)
-        off += n
-    vbuf = vbuf.to(dtype)
-    off = 0
-    for name, shape, _ in vecs:
-        n = math.prod(shape)
-        out[name] = vbuf[off: off + n].view(shape)
         off += n
     return out
 
 
-def port_params(cfg: dict, seed: int, device):
-    """(ModelConfig, params) of the port, through its own loading path."""
-    from jacobiforcing_tpu_torch.models.qwen import ModelConfig
-    from jacobiforcing_tpu_torch.utils.loader import assemble_params
+def draw(draws: List[Draw], seed: int, device, dtype) -> Iterator[Dict[str, torch.Tensor]]:
+    """{name: tensor} of each draw in turn, views into one buffer a draw."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    for d in draws:
+        yield _draw(d, gen, dev, dtype)
 
+
+def make_hf_tensors(layout, cfg: dict, seed: int, device, dtype=None) -> Dict[str, torch.Tensor]:
+    """Every tensor of the configuration at once, {name: tensor} on `device`."""
+    out: Dict[str, torch.Tensor] = {}
+    for piece in draw(layout.draws(cfg), seed, device, dtype or DTYPES[cfg["torch_dtype"]]):
+        out.update(piece)
+    return out
+
+
+def port_params(layout, cfg: dict, seed: int, device):
+    """The port's model, through the layout's `port_params`, which takes the
+    draws one piece at a time."""
     dtype = DTYPES[cfg["torch_dtype"]]
-    mc = ModelConfig.from_hf_config(cfg)
-    mc = ModelConfig(**{**mc.__dict__, "dtype": dtype})
-    tensors = make_hf_tensors(cfg, seed, device, dtype)
-    params = assemble_params(mc, tensors, dtype, torch.device(device))
-    del tensors
-    if torch.device(device).type == "cuda":
+    dev = torch.device(device)
+    out = layout.port_params(cfg, draw(layout.draws(cfg), seed, dev, dtype), dtype, dev)
+    if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return mc, params
+    return out

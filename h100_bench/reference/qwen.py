@@ -2,7 +2,7 @@
 
 It follows the Hugging Face `Qwen2ForCausalLM` / `Qwen3ForCausalLM`
 equations and reads the configuration file and the tensors under their
-checkpoint names (`lib/weights.make_hf_tensors`), nothing of the program:
+checkpoint names (`layouts/qwen.py`), nothing of the program:
 
     h = embed[ids]
     per layer:  x = rms(h) * w_in
@@ -55,7 +55,7 @@ def fp8_rows(x: torch.Tensor) -> torch.Tensor:
     return (x / s).to(torch.float8_e4m3fn).to(F32) * s
 
 
-class QwenReference:
+class Reference:
     def __init__(self, cfg: dict, tensors: Dict[str, torch.Tensor], fp8: bool = False):
         self.cfg = cfg
         self.t = tensors

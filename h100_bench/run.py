@@ -3,9 +3,9 @@
     python3 h100_bench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 The cell, its configuration and its metrics come from `BENCHMARK.json` at
-the root of the checkout; the configuration, traffic, metric readers and
-count functions from the files named after them under `h100_bench/`
-(`lib/registry.py`).  The run makes its weights and requests from the seed,
+the root of the checkout; the configuration, its architecture's layout and
+reference, traffic, metric readers and count functions from the files named
+after them under `h100_bench/` (`lib/registry.py`).  The run makes its weights and requests from the seed,
 sets up (`setup_s`), measures `--seconds`, checks what the window produced
 against the plain reference and prints, as the last line of standard
 output, one JSON object: `correct`, `attempted`, `failed`, `metrics` (the
@@ -67,6 +67,7 @@ class Context:
         if self.cell is None:
             raise SystemExit(f"no workload named {args.workload!r} in BENCHMARK.json")
         self.cfg = registry.config(self.cell["config"])
+        self.arch = registry.arch(self.cfg)
         self.traffic = registry.traffic(self.cell["name"])
         self.device = device
         self.before_window = None
@@ -76,11 +77,9 @@ class Context:
         self.setup_s = time.perf_counter() - T_START
 
     def run_data(self, **kw):
-        from h100_bench.lib.weights import dims
-
         data = RunData(**kw)
         data.setup_s = self.setup_s
-        data.dims = dims(self.cfg)
+        data.arch = self.arch
         data.cfg, data.traffic, data.cell = self.cfg, self.traffic, self.cell
         data.counts = self.registry.counts
         data.device_name = device_name(self.device)

@@ -39,7 +39,7 @@ def sweep_seed(seed: int, a) -> dict:
     print(f"seed {seed}: set-up {sr.setup_parts}", flush=True)
     ok_by_rate = {}
     for rate in a.rates:
-        sr.traffic = Traffic(ctx.traffic, ctx.seed, sr.d["V"], rate=rate)
+        sr.traffic = Traffic(ctx.traffic, ctx.seed, sr.arch.dims["V"], rate=rate)
         sr.window()
         while not sr.engine.scheduler.is_finished or sr.engine._pending:
             sr.engine.step()

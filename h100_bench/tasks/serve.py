@@ -21,7 +21,10 @@ Jacobi iterations (per-sequence trips) as the host sees them after `step`,
 the prompts each prefill forwarded, the engine's counters and kernel 1's
 launch counter.  The rows and pairs of a trip are counted from the
 sequence's committed length at the start of the chunk and the tokens the
-chunk committed (a linear rise over its trips).
+chunk committed (a linear rise over its trips: the count at the chunk's mean
+length, exact for full causal layers).  Attention is counted per shape of
+the architecture's layers (`lib/registry.Arch.attention`), each with its own
+heads and window.
 
 `memory_peak_bytes` is memory in use: the allocator's peak less the KV
 pool's pages that no request held at once.  The engine reserves the pool
@@ -41,7 +44,7 @@ import torch
 
 from h100_bench.lib.trace import Tracer, span
 from h100_bench.lib.traffic import Request, Traffic
-from h100_bench.lib.weights import dims, make_hf_tensors, port_params
+from h100_bench.lib.weights import make_hf_tensors, port_params
 
 
 @dataclass
@@ -61,13 +64,15 @@ class Live:
 
 @dataclass
 class Work:
-    """Counts over a span of steps."""
+    """Counts over a span of steps.  Pairs are kept per attention shape
+    (NH, KH, D, window) of the architecture: {shape: visible (query, key)
+    pairs of one layer and one query head of that shape}."""
 
     seq_trips: int = 0  # per-sequence Jacobi iterations
-    trip_pairs: int = 0  # visible (query, key) pairs of those trips, per layer and head
+    trip_pairs: Dict[tuple, float] = field(default_factory=dict)  # of those trips
     prefill_rows: int = 0
     prefill_head_rows: int = 0
-    prefill_pairs: int = 0  # per layer and head
+    prefill_pairs: Dict[tuple, int] = field(default_factory=dict)
     k1_ops: float = 0.0  # kernel 1's operations and bytes, as counts/paged_attention gives
     k1_bytes: float = 0.0
     k1_launches: int = 0
@@ -83,7 +88,7 @@ class ServeRun:
         self.ctx = ctx
         self.cfg = ctx.cfg
         self.tr = ctx.traffic
-        self.d = dims(self.cfg)
+        self.arch = ctx.arch
         self.L = int(self.tr["sampling"]["jacobi_block_len"])
         self.device = ctx.device
 
@@ -94,7 +99,7 @@ class ServeRun:
 
         ctx, tr = self.ctx, self.tr
         t = time.perf_counter()
-        mc, params = port_params(self.cfg, ctx.seed, self.device)
+        mc, params = port_params(self.arch.layout, self.cfg, ctx.seed, self.device)
         self.setup_parts = {"weights": time.perf_counter() - t}
         t = time.perf_counter()
         eng_kw = {k: tuple(v) if isinstance(v, list) else v for k, v in tr["engine"].items()}
@@ -112,7 +117,7 @@ class ServeRun:
                            batch_buckets=config.batch_buckets,
                            prefill_token_buckets=config.prefill_token_buckets)
         self.setup_parts["warmup"] = time.perf_counter() - t
-        self.traffic = Traffic(tr, ctx.seed, self.d["V"])
+        self.traffic = Traffic(tr, ctx.seed, self.arch.dims["V"])
         self.k1 = ctx.registry.counts("paged_attention")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -132,11 +137,22 @@ class ServeRun:
         self.active.append(live)
         return live
 
+    def _count_attention(self, work: Work, pairs: dict, first_pos, n: int, times: int = 1):
+        """Add `times` launches of kernel 1 over `n` queries from `first_pos`
+        in every layer: its operations and bytes, and the visible pairs per
+        attention shape into `pairs`."""
+        for shape, layers in self.arch.attention:
+            NH, KH, D, W = shape
+            pairs[shape] = pairs.get(shape, 0) + times * self.k1.pairs(first_pos, n, W)
+            ops, nb = self.k1.launch(first_pos, n, NH, KH, D, window=W)
+            work.k1_ops += times * ops * layers
+            work.k1_bytes += times * nb * layers
+
     def _observe(self, t: float, work: Optional[Work]) -> List[Live]:
         """Read the host mirrors after a step; returns the requests that finished."""
         from jacobiforcing_tpu_torch.engine.sequence import SequenceStatus
 
-        d, L, k1 = self.d, self.L, self.k1
+        L = self.L
         finished, still = [], []
         for lv in self.active:
             s = lv.seq
@@ -147,10 +163,7 @@ class ServeRun:
                     n = len(s) + L  # the prompt and the bootstrap draft
                     work.prefill_rows += n
                     work.prefill_head_rows += L
-                    work.prefill_pairs += n * (n + 1) // 2
-                    ops, nb = k1.launch(0, n, d["NH"], d["KH"], d["D"])
-                    work.k1_ops += ops * d["NL"]
-                    work.k1_bytes += nb * d["NL"]
+                    self._count_attention(work, work.prefill_pairs, 0, n)
             if s.status is SequenceStatus.WAITING and lv.prefilled:  # preempted
                 lv.prefilled = False
             n_out = s.num_completion_tokens
@@ -163,11 +176,8 @@ class ServeRun:
                     # trip j starts from len0 + j * dlen / dit committed
                     # tokens; a trip's counts are linear in that length
                     c_mean = lv.len0 + dlen * (dit - 1) / (2 * dit)
-                    ops, nb = k1.launch(c_mean, L, d["NH"], d["KH"], d["D"])
                     work.seq_trips += dit
-                    work.trip_pairs += dit * (L * c_mean + L * (L + 1) / 2)
-                    work.k1_ops += dit * ops * d["NL"]
-                    work.k1_bytes += dit * nb * d["NL"]
+                    self._count_attention(work, work.trip_pairs, c_mean, L, dit)
                 lv.it0 = s.jacobi_iters
                 lv.len0 = len(s)
             if s.is_finished:
@@ -329,14 +339,14 @@ def sample_gaps(ctx, sample: List[dict], control: bool = False) -> List[List[flo
     judged tokens are the served ones, or with `control` the tokens the fp8
     reference puts first at each position of the same prompt and served
     tokens."""
-    ref_mod = ctx.registry.reference(ctx.cfg["reference"])
-    tensors = make_hf_tensors(ctx.cfg, ctx.seed, ctx.device)
+    Reference = ctx.arch.Reference
+    tensors = make_hf_tensors(ctx.arch.layout, ctx.cfg, ctx.seed, ctx.device)
     seqs = [o["prompt"] + o["output"] for o in sample]
     pos = [list(range(len(o["prompt"]) - 1, len(o["prompt"]) + len(o["output"]) - 1))
            for o in sample]
-    ref = ref_mod.QwenReference(ctx.cfg, tensors).logits_at(seqs, pos)
+    ref = Reference(ctx.cfg, tensors).logits_at(seqs, pos)
     if control:
-        low = ref_mod.QwenReference(ctx.cfg, tensors, fp8=True).logits_at(seqs, pos)
+        low = Reference(ctx.cfg, tensors, fp8=True).logits_at(seqs, pos)
         judged = [c.argmax(-1) for c in low]
     else:
         judged = [torch.as_tensor(o["output"], device=r.device) for o, r in zip(sample, ref)]

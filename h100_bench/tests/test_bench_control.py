@@ -29,13 +29,13 @@ SEEDS = (2_147_483_911, 2_600_000_021, 3_100_000_007)
 
 def test_the_fp8_control_reads_far_above_float32_at_a_tiny_size():
     cfg = dict(TINY_QWEN2)
-    t = make_hf_tensors(cfg, 11, "cpu")
-    mod = Registry().reference("qwen")
+    t = make_hf_tensors(Registry().layout("qwen"), cfg, 11, "cpu")
+    Reference = Registry().reference("qwen").Reference
     g = torch.Generator().manual_seed(2)
     seqs = [[int(i) for i in torch.randint(1, 256, (40,), generator=g)] for _ in range(3)]
     pos = [list(range(10, 39))] * 3
-    ref = mod.QwenReference(cfg, t).logits_at(seqs, pos)
-    low = mod.QwenReference(cfg, t, fp8=True).logits_at(seqs, pos)
+    ref = Reference(cfg, t).logits_at(seqs, pos)
+    low = Reference(cfg, t, fp8=True).logits_at(seqs, pos)
     gaps = [(r.max(-1).values - r.gather(1, c.argmax(-1)[:, None])[:, 0]).max().item()
             for r, c in zip(ref, low)]
     assert max(gaps) > 0.0

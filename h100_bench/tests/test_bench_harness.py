@@ -167,7 +167,7 @@ for cell in bench["workloads"]:
     reg.config(cell["config"])
     traffic = reg.traffic(cell["name"])
     task = reg.task(traffic["task"])
-    reg.reference(reg.config(cell["config"])["reference"])
+    reg.arch(reg.config(cell["config"]))
 for m in bench["end_to_end"] + bench["per_layer"]:
     reg.metric(m["name"])
 for c in ("paged_attention", "serve_rows"):

@@ -9,11 +9,14 @@ from conftest import TINY_QWEN2, TINY_QWEN3
 from h100_bench.lib.registry import Registry
 from h100_bench.lib.weights import make_hf_tensors, port_params
 
+QWEN = Registry().layout("qwen")
+Reference = Registry().reference("qwen").Reference
+
 
 def port_logits(cfg, seed, ids):
     from jacobiforcing_tpu_torch.models.qwen import forward_dense, logits_at, rope_table
 
-    mc, params = port_params(cfg, seed, "cpu")
+    mc, params = port_params(QWEN, cfg, seed, "cpu")
     x = torch.as_tensor([ids])
     pos = torch.arange(len(ids))[None]
     h = forward_dense(params, mc, x, pos, rope_table(mc, "cpu"))
@@ -25,7 +28,7 @@ def test_reference_matches_the_port(base):
     cfg = dict(base, torch_dtype="float64")
     ids = list(torch.randint(1, cfg["vocab_size"], (37,), generator=torch.Generator().manual_seed(5)))
     ids = [int(i) for i in ids]
-    ref = Registry().reference("qwen").QwenReference(cfg, make_hf_tensors(cfg, 9, "cpu"))
+    ref = Reference(cfg, make_hf_tensors(QWEN, cfg, 9, "cpu"))
     got = ref.logits_at([ids], [list(range(len(ids)))])[0].double()
     want = port_logits(cfg, 9, ids)
     assert got.shape == want.shape
@@ -33,9 +36,9 @@ def test_reference_matches_the_port(base):
 
 
 def test_weights_follow_the_seed():
-    a = make_hf_tensors(TINY_QWEN2, 1, "cpu")
-    b = make_hf_tensors(TINY_QWEN2, 1, "cpu")
-    c = make_hf_tensors(TINY_QWEN2, 2, "cpu")
+    a = make_hf_tensors(QWEN, TINY_QWEN2, 1, "cpu")
+    b = make_hf_tensors(QWEN, TINY_QWEN2, 1, "cpu")
+    c = make_hf_tensors(QWEN, TINY_QWEN2, 2, "cpu")
     assert set(a) == set(b)
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["lm_head.weight"], c["lm_head.weight"])
@@ -44,11 +47,10 @@ def test_weights_follow_the_seed():
 
 def test_fp8_control_departs_further_than_float32():
     cfg = dict(TINY_QWEN3, torch_dtype="float64")
-    t = make_hf_tensors(cfg, 4, "cpu")
-    mod = Registry().reference("qwen")
+    t = make_hf_tensors(QWEN, cfg, 4, "cpu")
     ids = [int(i) for i in torch.randint(1, 256, (24,), generator=torch.Generator().manual_seed(1))]
     pos = [list(range(24))]
     exact = port_logits(cfg, 4, ids)
-    f32 = mod.QwenReference(cfg, t).logits_at([ids], pos)[0].double()
-    fp8 = mod.QwenReference(cfg, t, fp8=True).logits_at([ids], pos)[0].double()
+    f32 = Reference(cfg, t).logits_at([ids], pos)[0].double()
+    fp8 = Reference(cfg, t, fp8=True).logits_at([ids], pos)[0].double()
     assert (fp8 - exact).abs().max() > 100 * (f32 - exact).abs().max()

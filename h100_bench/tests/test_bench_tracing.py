@@ -76,11 +76,11 @@ def test_readers_find_nothing_in_a_program_without_the_counters(tiny_root):
     from h100_bench.tasks import serve
 
     reg = Registry(tiny_root)
-    work = serve.Work(seq_trips=40, prefill_rows=300, prefill_head_rows=24, prefill_pairs=9000,
+    work = serve.Work(seq_trips=40, prefill_rows=300, prefill_head_rows=24,
+                      prefill_pairs={(4, 2, 16, None): 9000},
                       stats={"prefill_tokens": 276, "generated_tokens": 50,
                              "jacobi_iterations": 40, "chunk_forwards": 12, "chunk_calls": 3})
     run = RunData(window_s=2.0, work=work, device_name="NVIDIA H100 80GB HBM3",
-                  counts=reg.counts, dims={"H": 64, "I": 128, "NH": 4, "KH": 2, "D": 16,
-                                           "NL": 2, "V": 256})
+                  counts=reg.counts, arch=reg.arch(reg.config("tiny-qwen2")))
     for name, *_ in NEW:
         assert reg.metric(name).compute(run) is None, name
