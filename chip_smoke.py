@@ -5,6 +5,8 @@
 
     python3 chip_smoke.py kernel,train_kernel   # the kernels against their plain versions only
     python3 chip_smoke.py int4                  # the int4 kernels and their path alone
+    python3 chip_smoke.py paged_cells:build/parent  # kernel 1 at the cells' shapes, bitwise
+                                                    # and timed against that tree's build
     python3 chip_smoke.py pointwise             # the decoder's fused pointwise kernels alone
     python3 chip_smoke.py apps                  # the chat / grid / demo-trainer / legacy apps
     python3 chip_smoke.py train_mesh            # DP / fsdp and TP training, two ranks
@@ -27,8 +29,14 @@ result line):
      bf16, at the demo (D=64, KH=2, G=2) and Qwen2.5-7B (D=128, KH=4, G=7) head
      shapes, with shuffled page tables, ragged lengths and -1 padding rows
      (tolerances in `check`).  The paged-attention kernel: the bitwise
-     AR-row == Jacobi-row check; times at the Jacobi-block (B=4, L=64),
-     AR-decode (B=4, L=1) and prefill shapes.  The
+     AR-row == Jacobi-row check over every cache kind (bf16 runs the
+     warp-specialised design, fp8 / int8 the cp.async tile); times at the
+     Jacobi-block (B=4, L=64), AR-decode (B=4, L=1) and prefill shapes; at
+     the benchmark cells' shapes (`PAGED_CELL_SHAPES`: cell 1's trip, cell
+     2's trip and prefill, and those three) against the plain version and
+     timed in a CUDA graph with the inputs rotating past the L2, beside the
+     bound (`[kernel-cells]`; `paged_cells:TREE` also builds TREE's kernel 1,
+     compares every output bit for bit and times both P C C P).  The
      speculative-attention kernel of the multiblock (MR) decoder: T in
      {N, 2N, 6N} in-flight tokens, committed lengths from 0 up, the decoder's
      tree mask with holes and a random mask; bitwise, the RA rows of a T=6N
@@ -273,16 +281,18 @@ def narrow_cache(x, kv):
     return quantize_rows(x.float() * 600.0, KV_KINDS[kv])
 
 
-def make_case(B, L, KH, G, D, page, ctx_max, dtype, seed, n_pad=0, full=False, kv=None):
-    """Random paged inputs: shuffled pages, ragged lengths (all `ctx_max` when
-    `full`), -1 table tails and `n_pad` batch-bucket padding rows (all -1
-    table, as the engine pads).  With `kv` ("fp8" / "int8") the cache is
+def make_case(B, L, KH, G, D, page, ctx_max, dtype, seed, n_pad=0, full=False, kv=None,
+              ctx_min=None):
+    """Random paged inputs: shuffled pages, ragged lengths in [max(ctx_min,
+    L), ctx_max] (all `ctx_max` when `full`), -1 table tails and `n_pad`
+    batch-bucket padding rows (all -1 table, as the engine pads).  With `kv`
+    ("fp8" / "int8") the cache is
     stored narrow with per-row scales, K/V magnitudes ~600, and the queries are
     scaled down by 600 so that the scores stay O(1)."""
     r = np.random.RandomState(seed)
     P = -(-(ctx_max + L) // page) + 1
     n_real = B - n_pad
-    lens = r.randint(max(L, 1), ctx_max + 1, size=n_real)
+    lens = r.randint(max(L, ctx_min or 1), ctx_max + 1, size=n_real)
     if full:
         lens[:] = ctx_max
     need = [-(-int(c) // page) for c in lens]
@@ -438,7 +448,8 @@ def sdpa_ms(c):
 
 def kernel_design():
     """One `[kernel-design]` line per serving kernel: which (query, cache, D)
-    variants run the tensor-core tile and which the fp32 tile, with the
+    variants run the warp-specialised tensor-core design, the cp.async
+    tensor-core tile and the fp32 tile, with the
     registers, local bytes and shared memory of each (cudaFuncGetAttributes).
     Fails if a tensor-core variant uses local memory (spills or a stack)."""
     from jacobiforcing_tpu_torch.ops import paged_attention_cuda as pac
@@ -448,21 +459,29 @@ def kernel_design():
              "float8_e5m2": "e5m2"}
     for name, variants in (("paged_attention", pac.variants()), ("spec_attention", sac.variants())):
         parts = []
-        for tcore in (1, 0):
-            vs = [v for v in variants if v["tensor_cores"] == tcore]
+        for design in (2, 1, 0):
+            vs = [v for v in variants if v["tensor_cores"] == design]
+            if not vs:
+                continue
             v0 = vs[0]
-            what = (f"tensor-core tile (wgmma m64n64k16 Q.K^T and m64n<D>k16 P.V, bf16 in, fp32 "
-                    f"accumulate; {v0['key_tile']}-key tiles; {v0['stages']} cp.async K/V stages; "
-                    f"{v0['threads'] // 128} warpgroups of 64 rows per CTA)" if tcore else
-                    f"fp32 CUDA-core tile ({v0['key_tile']}-key tiles, {v0['threads']} threads, "
-                    f"64 rows per CTA)")
+            what = {
+                2: f"warp-specialised tensor-core design (the same wgmma tile; "
+                   f"{v0['key_tile']}-key tiles; {v0['stages']} TMA K/V stages filled by one "
+                   f"producer warp; {v0['threads'] // 128 - 1} consumer warpgroups of 64 rows "
+                   f"per CTA)",
+                1: f"tensor-core tile (wgmma m64n64k16 Q.K^T and m64n<D>k16 P.V, bf16 in, fp32 "
+                   f"accumulate; {v0['key_tile']}-key tiles; {v0['stages']} cp.async K/V stages; "
+                   f"{v0['threads'] // 128} warpgroups of 64 rows per CTA)",
+                0: f"fp32 CUDA-core tile ({v0['key_tile']}-key tiles, {v0['threads']} threads, "
+                   f"64 rows per CTA)"}[design]
             cells = [f"{short[v['query']]}/{short[v['cache']]} D{v['D']} {v['registers']} regs "
                      f"{v['local_bytes']} B local {v['static_smem'] + v['dynamic_smem']} B smem"
                      for v in vs]
             parts.append(f"{what}: " + ", ".join(cells))
         log(f"[kernel-design] {name}: " + "; ".join(parts))
         spilled = [v for v in variants if v["tensor_cores"] and v["local_bytes"]]
-        if spilled or any(v["tensor_cores"] != (v["query"] == "bfloat16") for v in variants):
+        if spilled or any(bool(v["tensor_cores"]) != (v["query"] == "bfloat16")
+                          for v in variants):
             raise AssertionError(f"{name}: a tensor-core variant uses local memory, or a variant "
                                  f"runs the wrong tile: {spilled}")
 
@@ -557,6 +576,105 @@ def phase_kernel(timing):
             raise AssertionError(f"kernel disagrees with the plain version at the {name} shape")
         timing[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
                             max_abs_err=err)
+
+
+# Kernel 1 at the benchmark cells' shapes and row 1's of PERF.md's table: bf16
+# queries over a bf16 cache, D 128, page 256.  (name, B, L, KH, G, ctx_min,
+# ctx_max, every sequence at ctx_max)
+PAGED_CELL_SHAPES = (
+    ("cell1_trip", 32, 64, 4, 7, 256, 1536, False),     # coder7b-jacobi-closed32's trip
+    ("cell2_trip", 16, 64, 8, 4, 128, 2304, False),     # qwen3-8b-jacobi-poisson's trip
+    ("cell2_prefill", 1, 2048, 8, 4, 2048, 2048, True),  # and its prefill
+    ("decode", 4, 64, 4, 7, 1024, 1024, True),
+    ("ar_decode", 4, 1, 4, 7, 1024, 1024, True),
+    ("prefill", 1, 1024, 4, 7, 1024, 1024, True),
+)
+
+
+def reference_paged(tree):
+    """Another tree's build of csrc/paged_attention.cu (the parent commit's,
+    say), in the form of the wrapper's `_FN`."""
+    import ctypes
+
+    from jacobiforcing_tpu_torch.ops import _build
+    from jacobiforcing_tpu_torch.ops import paged_attention_cuda as pac
+
+    src = os.path.join(os.path.abspath(tree), "jacobiforcing_tpu_torch", "csrc",
+                       "paged_attention.cu")
+    out = os.path.join(REPO, "build", "kernels", "reference_paged_attention.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", out, src],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"building {src} failed:\n{proc.stdout}{proc.stderr}")
+    return pac.bind(ctypes.CDLL(out))
+
+
+def run_with(fn, c):
+    """run_kernel(c) through the library `fn` (`reference_paged`'s form)."""
+    from jacobiforcing_tpu_torch.ops import paged_attention_cuda as pac
+
+    saved, pac._FN = pac._FN, fn
+    try:
+        return run_kernel(c)
+    finally:
+        pac._FN = saved
+
+
+def phase_paged_cells(timing, ref_tree=None):
+    """Kernel 1 at PAGED_CELL_SHAPES: against the plain version, then its
+    device time (a CUDA graph of 20 calls, the inputs rotating through sets
+    whose K/V pass 256 MB, so the L2 does not hold them) beside the bound.
+    With `ref_tree`, the same seeded inputs through that tree's build as
+    well: every output bitwise against it, and both timed in turns (P C C
+    P)."""
+    from jacobiforcing_tpu_torch.ops import paged_attention_cuda as pac
+
+    ref = reference_paged(ref_tree) if ref_tree else None
+    differ = []
+    for name, B, L, KH, G, lo, hi, full in PAGED_CELL_SHAPES:
+        make = lambda seed: make_case(B, L, KH, G, 128, 256, hi, torch.bfloat16, seed=seed,
+                                      full=full, ctx_min=lo)
+        sets = [make(3000)]
+        kv_bytes = 2 * sets[0]["k"].numel() * sets[0]["k"].element_size()
+        sets += [make(3000 + i) for i in range(1, math.ceil(SPILL_L2_BYTES / kv_bytes))]
+        ws0 = pac.paged_attention_cuda.ws_launches
+        out = run_kernel(sets[0])
+        torch.cuda.synchronize()
+        ws = pac.paged_attention_cuda.ws_launches - ws0
+        err, worst, ok = check(out, run_plain(sets[0]), sets[0]["n_real"])
+        bounds = [bound(c) for c in sets]
+        bms = sum(b[0] for b in bounds) / len(bounds)
+        by = "/".join(sorted({b[1] for b in bounds}))
+        line = (f"[kernel-cells] {name} B={B} L={L} KH={KH} G={G} ctx {lo}-{hi}: "
+                f"{'warp-specialised' if ws else 'cp.async tile'}; max_abs_err={err:.3e} "
+                f"max err/tol={worst:.3f} {'ok' if ok else 'FAIL'}; bound {bms:.5f} ms ({by}); "
+                f"{len(sets)} input sets, K/V {kv_bytes / 1e6:.1f} MB each")
+        if not ok:
+            log(line)
+            raise AssertionError(f"kernel 1 disagrees with the plain version at {name}")
+        if ref is None:
+            ms = graph_ms(rotating(run_kernel, sets))
+            log(line + f"; kernel {ms:.4f} ms ({bms / ms * 100:.2f}% of bound)")
+            timing[f"cells_{name}"] = dict(ms=ms, bound_ms=bms, bound_by=by, max_abs_err=err)
+            continue
+        n_diff = sum(not torch.equal(bits(run_kernel(c)), bits(run_with(ref, c))) for c in sets)
+        if n_diff:
+            differ.append(name)
+        t = {"P": [], "C": []}
+        for tag in "PCCP":
+            fn = (lambda c: run_with(ref, c)) if tag == "P" else run_kernel
+            t[tag].append(graph_ms(rotating(fn, sets)))
+        p_ms, c_ms = min(t["P"]), min(t["C"])
+        log(line + f"; bitwise against the reference build: {n_diff} of {len(sets)} outputs "
+            f"differ {'ok' if n_diff == 0 else 'FAIL'}; reference "
+            f"{' / '.join(f'{x:.4f}' for x in t['P'])} ms ({bms / p_ms * 100:.2f}% of bound), "
+            f"this tree {' / '.join(f'{x:.4f}' for x in t['C'])} ms ({bms / c_ms * 100:.2f}%), "
+            f"{p_ms / c_ms:.2f}x")
+        timing[f"cells_{name}"] = dict(ms=c_ms, ref_ms=p_ms, bound_ms=bms, bound_by=by,
+                                       max_abs_err=err)
+    if differ:
+        raise AssertionError(f"kernel 1 differs bitwise from the reference build at {differ}")
 
 
 # ---------------------------------------------------------------------------
@@ -4453,6 +4571,11 @@ def main() -> int:
     if "kernel" in phases:
         kernel_design()
         run("kernel (paged attention)", phase_kernel, timing)
+        run("kernel (paged attention, the cells' shapes)", phase_paged_cells, timing)
+    for p in phases:
+        if p.startswith("paged_cells"):
+            # paged_cells[:REFERENCE_TREE]
+            run(p, phase_paged_cells, timing, p.partition(":")[2] or None)
         run("kernel (speculative attention)", phase_spec_kernel, timing)
         run("kernel (TP local heads)", phase_tp_kernel, timing)
     if "kernel" in phases or "int4" in phases:

@@ -22,9 +22,10 @@ weights, whose addresses never change.  With `capture` (the card, unless
     a replay draws what the eager trip would have.
 The kernel wrappers count their launches at capture; each replay adds the
 graph's launches to their counts instead (`paged_attention_cuda.launches`
-counts kernel runs either way).  A capture that fails raises; nothing falls
-back to eager.  Without `capture` (the CPU, or `enforce_eager`) the same
-programs run their trips eagerly over the same buffers.
+and `.ws_launches` count kernel runs either way).  A capture that fails
+raises; nothing falls back to eager.  Without `capture` (the CPU, or
+`enforce_eager`) the same programs run their trips eagerly over the same
+buffers.
 
 Under tensor parallelism (`group`, the model group) a trip holds the
 forward's collectives.  An NCCL group's collectives are captured into the
@@ -165,38 +166,42 @@ class DecodePrograms:
         reserved0 = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        counters = _kernel_wrappers()
-        before = [f.launches for f in counters]
+        counters = _kernel_counters()
+        before = [getattr(f, name) for f, name in counters]
         with torch.cuda.graph(graph, pool=self.pool):
             out = fn()
         torch.cuda.synchronize(self.device)
         # a kernel's wrapper counted its launches into the graph, which ran
         # nothing: they count at each replay instead
         captured = []
-        for f, b in zip(counters, before):
-            captured.append(f.launches - b)
-            f.launches = b
+        for (f, name), b in zip(counters, before):
+            captured.append(getattr(f, name) - b)
+            setattr(f, name, b)
         self.launches[key] = captured
         self.pool_bytes[key] = torch.cuda.memory_reserved(self.device) - reserved0
         self.capture_s[key] = time.perf_counter() - t0
         return graph, out
 
     def _replay(self, key: tuple, graph: torch.cuda.CUDAGraph, out):
-        counted = [(f, n) for f, n in zip(_kernel_wrappers(), self.launches[key]) if n]
+        counted = [(f, name, n)
+                   for (f, name), n in zip(_kernel_counters(), self.launches[key]) if n]
 
         def replay():
             graph.replay()
-            for f, n in counted:
-                f.launches += n
+            for f, name, n in counted:
+                setattr(f, name, getattr(f, name) + n)
             return out
 
         return replay
 
 
-def _kernel_wrappers():
-    """The wrappers of the kernels a captured program can launch, each with
-    its `launches` count."""
+def _kernel_counters():
+    """(wrapper, attribute) of every launch count a captured program can
+    move: the wrappers of the kernels it can launch, each with its `launches`
+    count, and kernel 1's count of its warp-specialised design."""
     from jacobiforcing_tpu_torch.ops import decoder_pointwise_cuda as dpc
     from jacobiforcing_tpu_torch.ops.paged_attention_cuda import paged_attention_cuda
 
-    return (paged_attention_cuda, dpc.add_rms_norm_cuda, dpc.qkv_rope_cuda, dpc.silu_mul_cuda)
+    return ((paged_attention_cuda, "launches"), (dpc.add_rms_norm_cuda, "launches"),
+            (dpc.qkv_rope_cuda, "launches"), (dpc.silu_mul_cuda, "launches"),
+            (paged_attention_cuda, "ws_launches"))

@@ -5,7 +5,16 @@ paged_attention_pallas`; same arguments as `ops/attention.paged_attention_ref`,
 which is its plain version.  The wrapper checks device, dtype, shape and
 contiguity and raises on anything the kernel does not take; it launches on
 PyTorch's current stream, does not synchronise, and raises if the launch is
-refused.  `paged_attention_cuda.launches` counts its launches.
+refused.  `paged_attention_cuda.launches` counts its launches, and
+`paged_attention_cuda.ws_launches` those that ran the warp-specialised design.
+
+The kernel has three designs, chosen by the (query, cache) types alone
+(`design`): float32 queries run the fp32 CUDA-core tile; bfloat16 queries over
+a bfloat16 cache the warp-specialised, TMA-fed tensor-core design; bfloat16
+queries over an fp8 / int8 cache the cp.async tensor-core tile, which widens
+the rows as it stages them.  Both bfloat16-query designs compute the same bits
+for a row.  `producer_plan` mirrors what the warp-specialised design's
+producer loads for one (sequence, KV head).
 
 The cache may be stored narrower than the queries.  Served (query, cache)
 pairs: the cache in the query's type; a bfloat16 cache under float32 queries;
@@ -35,6 +44,7 @@ SUPPORTED_PAIRS = frozenset(
      (torch.float32, torch.bfloat16)]
     + [(qd, cd) for qd in _DTYPE_CODES for cd in SCALED_CACHE_DTYPES])
 _FN = None
+KEY_TILE = 64  # keys per tile of the tensor-core designs
 # what the `jf_*_attrs` C functions report for one variant, in order
 _ATTR_FIELDS = ("tensor_cores", "registers", "local_bytes", "static_smem", "dynamic_smem",
                 "threads", "key_tile", "stages")
@@ -67,19 +77,71 @@ def variants():
     return kernel_variants(_build.load("paged_attention"), "jf_paged_attention_attrs")
 
 
+def design(q_dtype, cache_dtype) -> str:
+    """Which design of kernel 1 a served (query, cache) pair runs: "fp32"
+    (the CUDA-core tile), "ws" (the warp-specialised, TMA-fed tensor-core
+    design: bfloat16 over bfloat16) or "tc" (the cp.async tensor-core tile
+    over a one-byte cache).  Head size, page size, batch and block length
+    never change it."""
+    if (q_dtype, cache_dtype) not in SUPPORTED_PAIRS:
+        raise ValueError(f"({q_dtype}, {cache_dtype}) is not a served pair")
+    if q_dtype == torch.float32:
+        return "fp32"
+    return "ws" if cache_dtype == torch.bfloat16 else "tc"
+
+
+def box_rows(page_size: int) -> int:
+    """Keys per TMA box of the warp-specialised design: the largest of 64, 32
+    and 16 that divides the page size, so that no box crosses a page."""
+    return next(n for n in (64, 32, 16) if page_size % n == 0)
+
+
+def producer_plan(block_table_row, kv_end: int, h: int, num_slots: int, page_size: int):
+    """What the warp-specialised producer does for the keys [0, kv_end) of
+    one (sequence, KV head h), tile by tile: a list of (live, boxes) with
+    `live` the tile's liveness word (bit j: key 64 i + j has a row: it lies
+    below kv_end on a page that is not -1) and `boxes` the (box's first key
+    in the tile, tensor-map row) of each box it loads.  The tensor map is the
+    layer's cache viewed as [KH * num_slots, D]: key k lies at row
+    h * num_slots + page * page_size + k % page_size, page = the table's
+    entry k // page_size.  A box with no live key is not loaded; the V rows
+    of the tile's dead keys are zeroed after the boxes land, and a tile with
+    no live key loads nothing."""
+    table = [int(x) for x in block_table_row]
+    br = box_rows(page_size)
+
+    def page_of(k):
+        pi = k // page_size
+        return table[pi] if pi < len(table) else -1
+
+    plan = []
+    for k0 in range(0, max(kv_end, 0), KEY_TILE):
+        live = sum(1 << j for j in range(KEY_TILE)
+                   if k0 + j < kv_end and page_of(k0 + j) >= 0)
+        boxes = [(j, h * num_slots + page_of(k0 + j) * page_size + (k0 + j) % page_size)
+                 for j in range(0, KEY_TILE, br) if (live >> j) & ((1 << br) - 1)]
+        plan.append((live, boxes))
+    return plan
+
+
+def bind(lib):
+    """(jf_paged_attention, jf_error_string) of a loaded build of
+    csrc/paged_attention.cu, typed for ctypes: the wrapper's `_FN`."""
+    fn = lib.jf_paged_attention
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    lib.jf_error_string.argtypes = [ctypes.c_int]
+    lib.jf_error_string.restype = ctypes.c_char_p
+    return fn, lib.jf_error_string
+
+
 def _kernel():
     global _FN
     if _FN is None:
-        lib = _build.load("paged_attention")
-        fn = lib.jf_paged_attention
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        lib.jf_error_string.argtypes = [ctypes.c_int]
-        lib.jf_error_string.restype = ctypes.c_char_p
-        _FN = (fn, lib.jf_error_string)
+        _FN = bind(_build.load("paged_attention"))
     return _FN
 
 
@@ -169,10 +231,13 @@ def paged_attention_cuda(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
-        msg = "unsupported shape or dtype" if rc < 0 else err_str(rc).decode()
+        msg = "unsupported shape or dtype" if rc == -1 else err_str(rc).decode()
         raise RuntimeError(f"paged_attention kernel launch failed ({rc}): {msg}")
     paged_attention_cuda.launches += 1
+    if design(q.dtype, k_cache_l.dtype) == "ws":
+        paged_attention_cuda.ws_launches += 1
     return out
 
 
 paged_attention_cuda.launches = 0
+paged_attention_cuda.ws_launches = 0

@@ -295,6 +295,85 @@ def test_kernel_wrapper_rejects_malformed_scales():
         pac.check_inputs(*args[:7], args[7], args[8][:, :32])
 
 
+@pytest.mark.parametrize("q_dtype,cache_dtype", sorted(pac.SUPPORTED_PAIRS, key=str))
+@pytest.mark.parametrize("D,page,L", [(64, 16, 1), (64, 32, 8), (128, 48, 64), (128, 64, 1),
+                                      (128, 256, 64), (128, 256, 2048)])
+def test_kernel_routing_rule(q_dtype, cache_dtype, D, page, L):
+    """Kernel 1's design follows the (query, cache) types alone: float32
+    queries the fp32 tile, bfloat16 over bfloat16 the warp-specialised TMA
+    design, bfloat16 over a one-byte cache the cp.async tensor-core tile, at
+    every head size, page size and block length the wrapper takes."""
+    want = ("fp32" if q_dtype == torch.float32 else
+            "ws" if cache_dtype == torch.bfloat16 else "tc")
+    assert pac.design(q_dtype, cache_dtype) == want
+    # the shape passes the wrapper's checks (it fails only on the CPU device)
+    q = torch.zeros(1, L, 4, D, dtype=q_dtype)
+    k = torch.zeros(2, 4 * page, D, dtype=cache_dtype)
+    s = torch.ones(2, 4 * page) if cache_dtype in pac.SCALED_CACHE_DTYPES else None
+    with pytest.raises(ValueError, match="CUDA"):
+        pac.check_inputs(q, k, k, torch.zeros(1, 4, dtype=torch.int32),
+                         torch.ones(1, dtype=torch.int32), torch.zeros(1, L, dtype=torch.int32),
+                         page, s, s)
+
+
+def test_kernel_routing_rule_refuses_unserved_pairs():
+    with pytest.raises(ValueError, match="served pair"):
+        pac.design(torch.bfloat16, torch.float32)
+
+
+@pytest.mark.parametrize("page,rows", [(16, 16), (32, 32), (48, 16), (64, 64), (80, 16),
+                                       (96, 32), (256, 64)])
+def test_tma_box_rows_divide_the_page(page, rows):
+    assert pac.box_rows(page) == rows and page % rows == 0 and 64 % rows == 0
+
+
+@pytest.mark.parametrize("page", [16, 32, 48, 64, 256])
+def test_producer_plan_stages_the_gathered_keys(page):
+    """The warp-specialised producer's coordinates: staging each planned box
+    from the cache viewed as [KH * num_slots, D] (as TMA copies it) and
+    zeroing the V rows of dead keys gives, key for key, the row the block
+    table names (key k at h * num_slots + table[k // page] * page + k %
+    page), and zeros in V for keys at or past the length or on a -1 page;
+    no box is loaded without a live key."""
+    r = np.random.RandomState(page)
+    KH, D, num_pages = 2, 8, 24
+    num_slots = num_pages * page
+    k = torch.from_numpy(r.randn(KH, num_slots, D).astype(np.float32))
+    v = torch.from_numpy(r.randn(KH, num_slots, D).astype(np.float32))
+    P = 1024 // page + 2
+    table = np.full(P, -1, np.int32)
+    table[: min(P, num_pages)] = r.permutation(num_pages)[: min(P, num_pages)]
+    table[2] = -1  # a hole inside the sequence
+    flat_k, flat_v = k.reshape(KH * num_slots, D), v.reshape(KH * num_slots, D)
+    br = pac.box_rows(page)
+    for h in range(KH):
+        for kv_end in (1, 63, 64, 65, 200, 1000):
+            plan = pac.producer_plan(table, kv_end, h, num_slots, page)
+            assert len(plan) == -(-kv_end // 64)
+            for i, (live, boxes) in enumerate(plan):
+                k0 = 64 * i
+                tk = torch.full((64, D), float("nan"))  # a stage's stale rows
+                tv = torch.full((64, D), float("nan"))
+                for j, row in boxes:
+                    tk[j:j + br], tv[j:j + br] = flat_k[row:row + br], flat_v[row:row + br]
+                for j in range(64):
+                    if not (live >> j) & 1:
+                        tv[j] = 0.0
+                assert [j for j, _ in boxes] == [j for j in range(0, 64, br)
+                                                 if (live >> j) & ((1 << br) - 1)]
+                for j in range(64):
+                    key = k0 + j
+                    pi = key // page
+                    pg = int(table[pi]) if pi < P else -1
+                    has_row = key < kv_end and pg >= 0
+                    assert bool((live >> j) & 1) == has_row
+                    if has_row:
+                        slot = pg * page + key % page
+                        assert torch.equal(tk[j], k[h, slot]) and torch.equal(tv[j], v[h, slot])
+                    else:
+                        assert torch.equal(tv[j], torch.zeros(D))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():

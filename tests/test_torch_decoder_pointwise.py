@@ -454,7 +454,7 @@ def test_graph_replays_count_the_captured_launches(cuda):
     n = mc.num_layers
     assert eng.programs.num_graphs > 0
     for key, captured in eng.programs.launches.items():
-        assert captured == [n, 2 * n + 1, n, n], (key, captured)
+        assert captured == [n, 2 * n + 1, n, n, n], (key, captured)
     forwards = (pac.paged_attention_cuda.launches - k1) // n
     assert forwards > eng.programs.num_graphs
     assert [a - b for a, b in zip(_launches(), before)] == [(2 * n + 1) * forwards,

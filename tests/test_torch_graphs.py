@@ -52,6 +52,36 @@ def test_programs_one_per_bucket_eager_on_cpu():
     assert ("jacobi", 4, 8) in progs.programs and ("ar", 2) not in progs.programs
 
 
+def test_replays_count_the_graph_launches_of_every_counter():
+    """A replay adds a captured graph's launches to each wrapper count,
+    kernel 1's warp-specialised launches (`ws_launches`) among them."""
+    from jacobiforcing_tpu_torch.engine import graphs
+
+    progs = _engine("cpu").programs
+    counters = graphs._kernel_counters()
+    assert (pac.paged_attention_cuda, "launches") in counters
+    assert (pac.paged_attention_cuda, "ws_launches") in counters
+    captured = [28 + 3 * n for n in range(len(counters))]
+    progs.launches[("fake",)] = captured
+
+    class FakeGraph:
+        replays = 0
+
+        def replay(self):
+            FakeGraph.replays += 1
+
+    before = [getattr(f, name) for f, name in counters]
+    try:
+        replay = progs._replay(("fake",), FakeGraph(), "out")
+        assert replay() == "out" and replay() == "out"
+        assert FakeGraph.replays == 2
+        after = [getattr(f, name) for f, name in counters]
+        assert [a - b for a, b in zip(after, before)] == [2 * n for n in captured]
+    finally:
+        for (f, name), b in zip(counters, before):
+            setattr(f, name, b)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -87,6 +117,28 @@ def test_graphs_equal_eager_on_cuda(cuda, sp):
         assert (eng.programs.num_graphs > 0) == (not eager)
     assert outs[True] == outs[False]
     assert stats[True] == stats[False]
+
+
+@pytest.mark.cuda
+def test_ws_launches_through_graphs_on_cuda(cuda):
+    """A bf16 model over a bf16 cache runs kernel 1's warp-specialised design
+    at every launch, eager or replayed: `ws_launches` grows with `launches`."""
+    mc = tq.ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+                        num_heads=4, num_kv_heads=2, head_dim=64, max_position=1024,
+                        dtype=torch.bfloat16)
+    sp = SamplingParams(temperature=0.0, max_tokens=24, decode_strategy="jacobi",
+                        jacobi_block_len=8, jacobi_max_iterations=256)
+    for eager in (True, False):
+        cfg = Config(kvcache_page_size=16, max_model_len=256, jacobi_chunk_tokens=32,
+                     prefill_token_buckets=(32, 64, 128, 256), eos=-1, batch_buckets=(1, 2, 4),
+                     jacobi_async_host=False, enforce_eager=eager)
+        eng = LLMEngine(cfg, model_cfg=mc, params=tq.init_params(mc, 0, device="cuda"),
+                        num_kv_pages=128, device="cuda")
+        k1, ws = pac.paged_attention_cuda.launches, pac.paged_attention_cuda.ws_launches
+        eng.generate(_prompts(), sp)
+        assert pac.paged_attention_cuda.launches - k1 > 0
+        assert pac.paged_attention_cuda.ws_launches - ws == pac.paged_attention_cuda.launches - k1
+        assert (eng.programs.num_graphs > 0) == (not eager)
 
 
 @pytest.mark.cuda
